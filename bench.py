@@ -1,4 +1,4 @@
-"""Benchmark: P2PKH regex scan rate on the local accelerator.
+"""Benchmark: P2PKH regex scan rate on the local gpu.
 
 Prints ONE JSON line:
   {"metric": "...", "value": N, "unit": "keys/s", "vs_baseline": N/2e6}
@@ -14,12 +14,14 @@ and ALWAYS emits the JSON line -- with the measured rate and
 validated="partial:n/m" if validation was truncated, or value 0 plus an
 error field if even the measurement did not finish.  SIGTERM triggers the
 same early emit, so an external `timeout` still yields a parsable line.
-Stage wall-times go to stderr so any future truncation is diagnosable.
+Stage wall-times and the card's name and power limit go to stderr.  The
+exit code is 0 only when the rate was measured on a gpu and every
+validation case run passed.
 
 Env knobs: VGEN_BENCH_BATCH (default 524288), VGEN_BENCH_SECONDS (default
 10), VGEN_BENCH_PATTERN (default "^1C"), VGEN_BENCH_CHAIN (default 1024),
-VGEN_BENCH_KSUB (default 16; round-5 sweep: 653.5 vs 650.0 Mkeys/s at 8),
-VGEN_BENCH_VALIDATE (1 default / 0 / full),
+VGEN_BENCH_KSUB (default 16), VGEN_BENCH_VALIDATE (1 default: the P2PKH
+cases of the oracle check / 0 / full: all 12 cases),
 VGEN_BENCH_DEADLINE (default 780).
 """
 
@@ -34,7 +36,7 @@ import time
 STATE = {
     "stage": "init",
     "value": 0.0,
-    "validated": None,  # None (not attempted) / dict from validate_fused
+    "validated": None,  # None (not attempted) / {"done", "total", "passed"}
     "error": None,
     "detail": "",
     "done": False,
@@ -45,12 +47,7 @@ EMITTED = threading.Event()
 def emit():
     """Print the single JSON line (exactly once).
 
-    Written straight to file descriptor 1: the validation stage runs the
-    worker under contextlib.redirect_stdout(sys.stderr) (its prints are
-    progress, not the result), and redirect_stdout swaps the GLOBAL
-    sys.stdout -- a SIGTERM landing mid-validation would otherwise send
-    this line to stderr where the driver's stdout parse cannot see it
-    (observed round 5: the 650 M line ended up in the stderr log)."""
+    Written straight to file descriptor 1, whatever sys.stdout is."""
     if EMITTED.is_set():
         return
     EMITTED.set()
@@ -91,16 +88,13 @@ def stage_done(name):
 
 
 def worker(deadline: float):
-    os.environ.setdefault("VGEN_TPU_CACHE", os.path.expanduser("~/.cache/vgen_tpu"))
     try:
         stage("import-jax")
         import jax
 
-        jax.config.update(
-            "jax_compilation_cache_dir",
-            os.path.join(os.environ["VGEN_TPU_CACHE"], "jaxcache"),
-        )
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+        from vgen_tpu import compile_cache
+
+        compile_cache.enable()
         stage_done("import-jax")
 
         batch = int(os.environ.get("VGEN_BENCH_BATCH", 524_288))
@@ -109,18 +103,19 @@ def worker(deadline: float):
         chain = int(os.environ.get("VGEN_BENCH_CHAIN", 1024))
         k_sub = int(os.environ.get("VGEN_BENCH_KSUB", 16))
 
-        # a dead TPU runtime HANGS in backend init rather than raising;
-        # the main thread's deadline turns that into an honest error line
         stage("device-probe")
-        n_dev = len(jax.devices())
-        platform = jax.devices()[0].platform
+        dev = jax.devices()[0]
+        if dev.platform != "gpu":
+            raise RuntimeError(f"no gpu visible to JAX ({jax.devices()})")
+        from chip_smoke import card_line
+
+        print(f"# card: {card_line()}", file=sys.stderr, flush=True)
         stage_done("device-probe")
-        print(f"# devices: {n_dev} x {jax.devices()[0].device_kind}",
+        print(f"# devices: {len(jax.devices())} x {dev.device_kind}",
               file=sys.stderr, flush=True)
 
-        # MEASURE FIRST (round-3 lesson: a truncated run must still carry
-        # a rate).  The scan warmup compiles the same kernels the product
-        # scan uses; the persistent cache makes later runs fast.
+        # MEASURE FIRST: a truncated run must still carry a rate.  The
+        # scan warmup compiles the same step the product scan uses.
         stage("measure")
         from vgen_tpu.crypto.address import AddressFormat
         from vgen_tpu.scan.scanner import benchmark_device
@@ -135,34 +130,46 @@ def worker(deadline: float):
         )
         STATE["value"] = stats["keys_per_sec"]
         STATE["detail"] = (
-            f"# device={jax.devices()[0].device_kind} batch={batch} "
+            f"# device={dev.device_kind} batch={batch} "
             f"ops={stats['operations']} elapsed={stats['elapsed']:.2f}s"
         )
         stage_done("measure")
 
-        # Correctness gate: on-device oracle validation of the fused
-        # kernels BEFORE the rate is final -- a fast wrong kernel must not
-        # produce a bench win.  Runs sections until the deadline margin.
+        # Correctness gate: the device's match masks against the host's
+        # independent re-derivation (scan.oracle, chip_smoke phase 2)
+        # BEFORE the rate is final -- a fast wrong step must not produce a
+        # bench win.  Runs cases until the deadline margin.
         validate = os.environ.get("VGEN_BENCH_VALIDATE", "1")
-        if validate != "0" and platform != "cpu":
+        if validate != "0":
             stage("validate")
-            import contextlib
+            from vgen_tpu.scan import oracle
 
-            sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-            from scripts.validate_fused import run_validation_detail
-
-            # keep stdout to the single JSON line; progress -> stderr
-            with contextlib.redirect_stdout(sys.stderr):
-                STATE["validated"] = run_validation_detail(
-                    batch=262144,
-                    quick=validate != "full",
-                    deadline=deadline - 20.0,
-                )
+            cases = [c for c in oracle.CASES
+                     if validate == "full" or c[0] == AddressFormat.P2PKH]
+            v = {"done": 0, "total": len(cases), "passed": True}
+            STATE["validated"] = v
+            runner = oracle.WindowRunner(batch, chain)
+            for fmt, path, pat in cases:
+                if time.monotonic() > deadline - 60.0:
+                    break
+                res = oracle.check_window(runner, fmt, pat, 0x5EED_0000_0001
+                                          + 7 * batch, 65_536)
+                print(f"# validate {res.line()}", file=sys.stderr,
+                      flush=True)
+                v["passed"] = v["passed"] and res.ok
+                v["done"] += 1
             stage_done("validate")
     except Exception as e:  # pragma: no cover
         STATE["error"] = f"{type(e).__name__}: {e}"
     finally:
         STATE["done"] = True
+
+
+def exit_code() -> int:
+    v = STATE["validated"]
+    ok = (STATE["error"] is None and STATE["value"] > 0
+          and (v is None or v["passed"]))
+    return 0 if ok else 1
 
 
 def main():
@@ -173,7 +180,7 @@ def main():
         print(f"# signal {signum}: emitting early", file=sys.stderr,
               flush=True)
         emit()
-        os._exit(0)
+        os._exit(1)
 
     signal.signal(signal.SIGTERM, on_term)
     signal.signal(signal.SIGINT, on_term)
@@ -187,7 +194,7 @@ def main():
               f"{STATE['stage']}", file=sys.stderr, flush=True)
     emit()
     # the worker may be stuck in a device call; don't wait for it
-    os._exit(0)
+    os._exit(exit_code() if STATE["done"] else 1)
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""Per-format x per-path benchmark matrix on the real chip.
+"""Per-format x per-path benchmark matrix on the local gpu.
 
 Times the DeviceScanner end-to-end loop (compile excluded) for every
 address format on both match paths:
@@ -6,7 +6,7 @@ address format on both match paths:
 - "interval": anchored-literal prefix -> hash160/account/output-key range
   compare (the VanitySearch-style fast path; GLV 6-keys-per-add for the
   formats that support it)
-- "dfa": generic regex with a selective literal prefix -- round 3's
+- "dfa": generic regex with a selective literal prefix -- the
   hybrid pre-filter routes these down the interval fast path with
   host-side regex filtering of survivors, so this row now measures what
   a user actually gets for such patterns
@@ -28,20 +28,15 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-import jax
+from vgen_tpu import compile_cache
 
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.path.expanduser("~/.cache/vgen_tpu/jaxcache"),
-)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+compile_cache.enable()
 
 from vgen_tpu.crypto.address import AddressFormat
 from vgen_tpu.scan.scanner import CHAIN_LEN, benchmark_device
 
 SECS = float(os.environ.get("SECS", 6))
 B = int(os.environ.get("B", 524_288))
-# round 4: the fused P2TR ladder handles the full default batch
 B_P2TR = int(os.environ.get("B_P2TR", 524_288))
 
 # (format, interval pattern, class pattern, pure-dfa pattern, batch) --

@@ -2,7 +2,7 @@
 GPU bench (benches/gpu_bench.rs:24-52, sweep {256K, 512K, 1M, 2M}).
 
 Prints one line per (batch, k_sub) point: keys/s for the headline P2PKH
-anchored-prefix scan.  Run on TPU:  python scripts/bench_sweep.py
+anchored-prefix scan.  Run on a gpu:  python scripts/bench_sweep.py
 Env: VGEN_SWEEP_BATCHES, VGEN_SWEEP_KSUB, VGEN_BENCH_SECONDS, pattern via
 VGEN_BENCH_PATTERN (default ^1C).
 """
@@ -15,14 +15,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 
 def main():
-    os.environ.setdefault("VGEN_TPU_CACHE", os.path.expanduser("~/.cache/vgen_tpu"))
-    import jax
+    from vgen_tpu import compile_cache
 
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.path.join(os.environ["VGEN_TPU_CACHE"], "jaxcache"),
-    )
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+    compile_cache.enable()
 
     from vgen_tpu.crypto.address import AddressFormat
     from vgen_tpu.scan.scanner import benchmark_device

@@ -1,8 +1,7 @@
 """Multi-process scaling proxy: 2-process vs 1-process CPU-mesh throughput.
 
-BASELINE.md targets >=90% scaling efficiency 1 chip -> 1 host -> N hosts.
-Real multi-host TPU hardware is not reachable from this environment, so
-this measures the honest proxy the verdict asked for: the SAME total
+BASELINE.md targets >=90% scaling efficiency 1 device -> 1 host -> N hosts.
+Without a multi-host gpu cluster this measures a proxy: the SAME total
 virtual device count (8) run as one process vs as a 2-process
 jax.distributed + gloo cluster (4 devices each), fixed work, compile
 excluded.  Cross-process overhead (gloo collectives over localhost,

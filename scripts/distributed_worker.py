@@ -8,7 +8,7 @@ MeshScanner range scan, and writes its view of the results to a JSON file.
 What this validates (the branches that only execute at process_count > 1):
   - parallel.distributed.initialize() via VGEN_* env vars + gloo collectives
   - parallel.mesh._put_global's jax.make_array_from_callback branch
-  - cross-process psum/all_gather in the sharded scan steps
+  - cross-process all_gather in the sharded scan step
   - every process sees every match (indices are all-gathered)
   - only process 0 writes the range-scan checkpoint
 
@@ -40,8 +40,6 @@ if "xla_backend_optimization_level" not in flags:
 os.environ["XLA_FLAGS"] = flags.strip()
 
 import jax
-
-jax.config.update("jax_platforms", "cpu")
 
 from vgen_tpu.parallel import distributed
 

@@ -1,5 +1,5 @@
 """Sweep k_sub (windows per dispatch) and in_flight (pipelined dispatches)
-for the end-to-end DeviceScanner loop on the real chip.
+for the end-to-end DeviceScanner loop on the local gpu.
 
 Env: B (default 524288), KS (csv, default 8,16), IF (csv, default 4,8),
 SECS (default 6).
@@ -10,13 +10,9 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-import jax
+from vgen_tpu import compile_cache
 
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.path.expanduser("~/.cache/vgen_tpu/jaxcache"),
-)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+compile_cache.enable()
 
 from vgen_tpu.crypto.address import AddressFormat
 from vgen_tpu.pattern import Pattern
@@ -28,7 +24,6 @@ IF = [int(k) for k in os.environ.get("IF", "4,8").split(",")]
 SECS = float(os.environ.get("SECS", 6))
 # never-match: with a matching pattern and a huge count target the
 # random-scan overflow recovery re-derives EVERY window on the host
-# (measured round 5: the ^1C default stalled the sweep for 40+ min)
 PAT = os.environ.get("VGEN_BENCH_PATTERN", "^1CBenchNeverMatchesXx")
 
 best = (0.0, None)

@@ -218,14 +218,14 @@ def test_range_with_explicit_range_and_count_zero(capsys):
     assert out  # found the key
 
 
-# -- device-backend resolution (startup-hang resilience) ---------------------
+# -- device-backend resolution ---------------------------------------------
 
 
 def test_resolve_use_device_no_device():
     from vgen_tpu.cli import resolve_use_device
 
     assert resolve_use_device("auto", no_device=True) is False
-    assert resolve_use_device("tpu", no_device=True) is False
+    assert resolve_use_device("gpu", no_device=True) is False
 
 
 def test_resolve_use_device_backend_cpu_uses_jax_pipeline():
@@ -234,28 +234,64 @@ def test_resolve_use_device_backend_cpu_uses_jax_pipeline():
     assert resolve_use_device("cpu", no_device=False) is True
 
 
-def test_resolve_use_device_env_cpu_auto_native(monkeypatch):
-    # JAX_PLATFORMS=cpu (the test env) + auto -> native CPU scanner
+def test_resolve_use_device_env_cpu_auto_native(monkeypatch, capsys):
+    # JAX_PLATFORMS=cpu (the test env) + auto -> native CPU scanner, said
+    # in one stderr line
     from vgen_tpu.cli import resolve_use_device
 
     monkeypatch.setenv("JAX_PLATFORMS", "cpu")
     assert resolve_use_device("auto", no_device=False) is False
+    err = capsys.readouterr().err.strip().splitlines()
+    assert len(err) == 1 and "native CPU scanner" in err[0]
 
 
-def test_resolve_use_device_env_cpu_tpu_conflict(monkeypatch):
+def test_resolve_use_device_env_cpu_gpu_conflict(monkeypatch):
     from vgen_tpu.cli import resolve_use_device
 
     monkeypatch.setenv("JAX_PLATFORMS", "cpu")
-    with pytest.raises(SystemExit):
-        resolve_use_device("tpu", no_device=False)
+    with pytest.raises(SystemExit) as exc:
+        resolve_use_device("gpu", no_device=False)
+    assert exc.value.code == 2
 
 
 def test_resolve_use_device_probe_cpu_only(monkeypatch):
-    # probe path: no env override, but jax is pinned to CPU (conftest) ->
-    # auto prefers the native scanner, explicit tpu errors
+    # jax sees only CPU devices -> auto prefers the native scanner,
+    # explicit gpu errors
     from vgen_tpu.cli import resolve_use_device
 
     monkeypatch.delenv("JAX_PLATFORMS", raising=False)
     assert resolve_use_device("auto", no_device=False) is False
     with pytest.raises(SystemExit):
-        resolve_use_device("tpu", no_device=False)
+        resolve_use_device("gpu", no_device=False)
+
+
+def test_generate_backend_gpu_without_gpu_exits_2(capsys):
+    """--backend gpu never falls back: with only CPU devices the CLI
+    exits 2 before scanning."""
+    with pytest.raises(SystemExit) as exc:
+        run_from_args(["generate", "-p", "^1", "--backend", "gpu",
+                       "--no-tui", "-o", "minimal"])
+    assert exc.value.code == 2
+    captured = capsys.readouterr()
+    assert "--backend gpu" in captured.err
+    assert captured.out == ""
+
+
+def test_backend_choices_are_auto_gpu_cpu():
+    from vgen_tpu.cli import build_parser
+
+    p = build_parser()
+    sub = next(a for a in p._actions if a.dest == "command")
+    for name in ("generate", "range"):
+        backend = next(a for a in sub.choices[name]._actions
+                       if a.dest == "backend")
+        assert backend.choices == ["auto", "gpu", "cpu"]
+
+
+@pytest.mark.parametrize("fmt", ["p2pkh", "p2pkh-uncompressed", "p2wpkh",
+                                 "p2sh-p2wpkh", "p2tr", "ethereum"])
+def test_format_choices_cover_all_six(fmt):
+    from vgen_tpu.cli import build_parser
+
+    args = build_parser().parse_args(["generate", "-p", "^1", "-f", fmt])
+    assert args.format == fmt

@@ -176,33 +176,6 @@ def test_scalar_mul_add_windowed_affine():
         assert (u256.to_int(qx)[i], u256.to_int(qy)[i]) == expect, (p, t)
 
 
-@pytest.mark.slow
-def test_jacobian_add_affine_lean():
-    """Lean mixed add (no doubling fallback; the Pallas P2TR ladder's
-    primitive) vs oracle, incl. the masked H == 0 cases."""
-    ps = [5, 7, rng.randrange(1, ec.N)]
-    qs = [11, 7, 13]
-    P = [ec.scalar_mult(p) for p in ps]
-    Q = [ec.scalar_mult(q) for q in qs]
-    X = jnp.asarray(u256.from_int([p[0] for p in P]))
-    Y = jnp.asarray(u256.from_int([p[1] for p in P]))
-    Z = jnp.asarray(u256.from_int([1] * len(ps)))
-    qx = jnp.asarray(u256.from_int([q[0] for q in Q]))
-    qy = jnp.asarray(u256.from_int([q[1] for q in Q]))
-    f = jax.jit(curve.jacobian_add_affine_lean)
-    X3, Y3, Z3, ok = f(X, Y, Z, qx, qy)
-    ax, ay = jax.jit(curve.batch_jacobian_to_affine)(
-        X3, Y3, jnp.where(jnp.asarray(ok)[None, :], Z3, 1)
-    )
-    okn = np.asarray(ok)
-    assert list(okn) == [True, False, True]  # index 1 is P == Q
-    for i, (p, q) in enumerate(zip(ps, qs)):
-        if not okn[i]:
-            continue
-        expect = ec.scalar_mult((p + q) % ec.N)
-        assert (u256.to_int(ax)[i], u256.to_int(ay)[i]) == expect
-
-
 def test_glv_endomorphism_constants():
     # BETA is a primitive cube root of 1 in F_p, LAMBDA in Z_n, and the
     # endomorphism law phi(x, y) = (BETA*x, y) == LAMBDA*(x, y) holds.

@@ -27,10 +27,13 @@ def test_initialize_noop_without_cluster_env(monkeypatch):
 
 
 def test_initialize_false_hint_stays_single_host(monkeypatch):
-    # a hint var is set but jax.distributed cannot actually detect a
-    # cluster -> must quietly stay single-host, not crash the CLI
-    monkeypatch.setenv("CLOUD_TPU_TASK_ID", "0")
-    assert distributed.initialize() in (False,)
+    # a cloud scheduler's variables are not a cluster bootstrap: without
+    # VGEN_COORDINATOR or JAX_COORDINATOR_ADDRESS, stay single-host
+    for k in distributed._AUTO_ENV_HINTS + ("VGEN_COORDINATOR",):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("SLURM_JOB_ID", "1")
+    assert distributed.initialize() is False
+    assert distributed.is_initialized() is False
 
 
 def _free_port() -> int:

@@ -205,3 +205,39 @@ def test_batch_inverse_chain():
     for c in range(C):
         got = u256.to_int(invs[:, c])
         assert got == [pow(v, P - 2, P) for v in vals[c]]
+
+
+# Montgomery chain shapes the scanners use: one chain over a whole odd-sized
+# batch, a single element, and zeros pre-replaced by one (the caller
+# contract of curve.scalar_mul_add_windowed_affine).
+
+
+def _inverse_chain_np(vals):
+    return u256.to_int(np.asarray(field.batch_inverse_chain(dev(vals))))
+
+
+def test_fallback_small_width_exact():
+    r = random.Random(3)
+    vals = [r.randrange(1, P - 1) for _ in range(96)]
+    for v, g in zip(vals, _inverse_chain_np(vals)):
+        assert (v * g) % P == 1
+
+
+def test_fallback_width_one():
+    v = 0xDEADBEEF12345
+    assert (v * _inverse_chain_np([v])[0]) % P == 1
+
+
+def test_fallback_guard_zero():
+    """Zero lanes replaced by one before the chain (as the P2TR ladder
+    does) leave every other inverse exact."""
+    r = random.Random(7)
+    vals = [r.randrange(1, P - 1) for _ in range(96)]
+    for dead in (0, 17, 95):
+        vals[dead] = 0
+    got = _inverse_chain_np([v or 1 for v in vals])
+    for v, g in zip(vals, got):
+        if v:
+            assert (v * g) % P == 1
+        else:
+            assert g == 1

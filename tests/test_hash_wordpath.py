@@ -1,7 +1,7 @@
 """Partial-evaluated word-level hash160 path vs hashlib and the byte path.
 
 The word path (ops/bitops.py + sha256.compress_pe + ripemd160
-._rounds_pe) is what the fused Pallas interval kernels run; these tests pin
+._rounds_pe) is what the gpu route's unrolled tails run; these tests pin
 it to hashlib ground truth and to the generic byte-level implementations
 (the reference validates its device hashes only implicitly, SURVEY §4 --
 we check them directly)."""

@@ -123,7 +123,7 @@ def test_pattern_method_route():
 
 
 def test_interval_words_roundtrip():
-    from vgen_tpu.ops.pallas_fused import intervals_to_words
+    from vgen_tpu.ops.pipeline import intervals_to_words
 
     ivs = match_intervals(AddressFormat.P2PKH, "^1C", False)
     lo, hi = intervals_to_words(ivs)

@@ -1,9 +1,8 @@
 """XLA interval tail (ops/pipeline.make_range_tail) vs the host oracle.
 
-Covers every format (including P2TR's on-chip TapTweak and Ethereum's
-keccak path) and the GLV 6-variant expansion.  The fused Pallas kernels
-share these exact helpers (ops/pallas_fused) and are validated on real TPU
-by scripts/validate_fused.py."""
+Covers every format (including P2TR's on-device TapTweak and Ethereum's
+keccak path) and the GLV 6-variant expansion.  On the gpu the same helpers
+are checked against the host oracle by chip_smoke.py (scan/oracle.py)."""
 
 import numpy as np
 import pytest

@@ -1,4 +1,5 @@
-"""Scanner integration tests (device path on CPU backend + CPU fallback).
+"""Scanner integration tests (device path on the CPU backend + the native
+CPU scanner).
 
 Mirrors the reference's scanner tests (scanner.rs:348-466): always-match
 patterns, multiple matches, stop-flag honored under an impossible pattern,
@@ -12,6 +13,7 @@ import pytest
 
 from vgen_tpu.crypto.address import AddressFormat, AddressGenerator
 from vgen_tpu.pattern import Pattern
+from vgen_tpu.scan import route
 from vgen_tpu.scan import scanner as sc
 
 BATCH = 256
@@ -135,24 +137,40 @@ def test_default_config():
     assert cfg.threads is None
 
 
-def test_device_failure_falls_back_to_cpu(monkeypatch):
-    """Reference parity: device failure -> CPU fallback with a warning
-    (lib.rs:727-747, 1185-1198), sticky for subsequent scans."""
+def test_device_failure_propagates(monkeypatch):
+    """A device error inside scan_with_progress reaches the caller: no
+    silent rerun on the CPU scanner."""
 
     class Boom:
         def __init__(self, *a, **kw):
-            raise RuntimeError("no accelerator")
+            raise RuntimeError("device lost")
 
     monkeypatch.setattr(sc, "DeviceScanner", Boom)
     monkeypatch.setattr(sc, "_scanner_cache", {})
-    monkeypatch.setattr(sc, "_DEVICE_BROKEN", False)
-    res = sc.scan_with_progress(
-        Pattern("^1"),
-        config(format=AddressFormat.P2PKH, use_device=True, count=1,
-               cpu_batch_size=50),
-    )
-    assert len(res.matches) == 1
-    assert sc._DEVICE_BROKEN is True
+    with pytest.raises(RuntimeError, match="device lost"):
+        sc.scan_with_progress(
+            Pattern("^1"),
+            config(format=AddressFormat.P2PKH, use_device=True, count=1,
+                   cpu_batch_size=50),
+        )
+
+
+def test_device_error_mid_scan_propagates(monkeypatch):
+    """An error raised by the compiled step itself (not the scanner's
+    construction) propagates too."""
+    from vgen_tpu.ops import pipeline
+
+    def broken(*a, **kw):
+        raise RuntimeError("XLA execution failed")
+
+    monkeypatch.setattr(pipeline, "run_range_scan_step", broken)
+    monkeypatch.setattr(sc, "_scanner_cache", {})
+    with pytest.raises(RuntimeError, match="XLA execution failed"):
+        sc.scan_with_progress(
+            Pattern("^1Cat"),
+            config(format=AddressFormat.P2PKH, use_device=True, count=1,
+                   device_batch_size=BATCH, start=1000, end=5000),
+        )
 
 
 def test_range_scan_doubling_degenerate_key():
@@ -236,7 +254,7 @@ def test_prefilter_hybrid_range_scan_finds_key():
     scanner = sc.DeviceScanner(AddressFormat.P2PKH, BATCH, chain_len=BATCH)
     cfg = config(format=AddressFormat.P2PKH, count=0, start=0x54000,
                  end=0x54FFF)
-    assert scanner._plan_intervals(pat, cfg) is not None  # hybrid active
+    assert route.plan_intervals(pat, cfg.format, BATCH, True) is not None
     res = scanner.scan(pat, cfg)
     assert key.to_bytes(32, "big").hex() in [m.hex for m in res.matches]
     assert res.operations == 0x1000
@@ -248,6 +266,4 @@ def test_prefilter_gate_falls_back_for_weak_prefix():
     """'^1.at' has prefix '1' (p ~ 1): far beyond the survivor budget, so
     the planner must return None (pure DFA path)."""
     pat = Pattern("^1.at")
-    scanner = sc.DeviceScanner(AddressFormat.P2PKH, BATCH, chain_len=BATCH)
-    cfg = config(format=AddressFormat.P2PKH)
-    assert scanner._plan_intervals(pat, cfg) is None
+    assert route.plan_intervals(pat, AddressFormat.P2PKH, BATCH, False) is None

@@ -1,10 +1,8 @@
 """(V, T) 2D-batch trace paths vs flat (B,) paths: identical numerics.
 
-The fused Pallas kernels run their hash/encode/interval code over (V, T)
-batch tiles (round-3 layout change); the same jnp code must produce the
-same results under both batch shapes (tiny batches keep the unrolled
-XLA:CPU compiles fast); real-hardware coverage is
-scripts/validate_fused.py.
+The hash/encode/interval code is shape-polymorphic over the batch dims; the
+same jnp code must produce the same results over (V, T) 2D batches as over
+flat (B,) ones (tiny batches keep the unrolled XLA:CPU compiles fast).
 """
 
 import numpy as np
@@ -91,8 +89,7 @@ def test_tagged_hash_vtile():
 
 
 def test_segwit_symbols_vtile():
-    # the P2TR fused DFA kernel encodes bech32m inside the kernel over
-    # (V, T) tiles (round 4); same numerics as the flat path
+    # bech32m over (V, T) batches: same numerics as the flat path
     from vgen_tpu.ops import encode, u256
 
     x = _limbs()

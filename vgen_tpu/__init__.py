@@ -1,8 +1,8 @@
-"""vgen-tpu: TPU-native vanity-address generation and string-matching framework.
+"""vgen-tpu: vanity-address generation and string-matching framework on JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of oritwoen/vgen
+A from-scratch JAX/XLA re-design of the capabilities of oritwoen/vgen
 (reference layer map: /root/reference/src/lib.rs:9-12 public API).  The entire
-keygen -> EC -> hash -> encode -> regex-match pipeline runs on-chip; the host
+keygen -> EC -> hash -> encode -> regex-match pipeline runs on the device; the host
 only decodes winning keys.
 
 Public API (mirrors the reference's re-exports, lib.rs:9-12):

@@ -314,7 +314,7 @@ def window_table(window_bits: int = 8) -> np.ndarray:
     shape (n_windows, 2^w, 2, 16) uint32 with entry [w, d] = affine
     (d * 2^(w*window_bits)) * G as 16-bit limbs; d=0 rows are zero filler.
 
-    Feeds curve.scalar_mul_windowed (the on-chip taproot-tweak ladder)."""
+    Feeds curve.scalar_mul_windowed (the device taproot-tweak ladder)."""
     n_windows = 256 // window_bits
     D = 1 << window_bits
     out = np.zeros((n_windows, D, 2, 16), dtype=np.uint32)

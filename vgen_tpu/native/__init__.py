@@ -1,9 +1,9 @@
 """Native C++ CPU scanner: build-on-demand + ctypes binding.
 
-The TPU build's counterpart of the reference's rayon CPU path
+This build's counterpart of the reference's rayon CPU path
 (reference src/scanner.rs:76-330): incremental-EC batch adds with one
 Montgomery inversion per batch, std::thread over sub-ranges.  Used as the
-CPU fallback scanner (--no-device) and for `estimate` calibration; the
+CPU scanner (--no-device, or no gpu) and for `estimate` calibration; the
 pure-Python oracle remains the correctness ground truth.
 """
 

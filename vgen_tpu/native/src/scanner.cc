@@ -1,6 +1,6 @@
 // Native CPU vanity scanner: keygen -> hash -> encode -> DFA match.
 //
-// This is the TPU build's counterpart of the reference's rayon CPU scanner
+// This is this build's counterpart of the reference's rayon CPU scanner
 // (reference src/scanner.rs:76-330, ~50-200K keys/s): C++ with the same
 // incremental-EC + Montgomery-batch-inversion hot loop the device uses,
 // threaded over sub-ranges, exposed through a C ABI for ctypes.

@@ -1,7 +1,6 @@
-"""Device-side compute kernels (JAX/XLA first, Pallas-fused for hot paths).
+"""Device-side compute (plain jnp/lax, compiled by XLA).
 
 Layout convention: big integers are arrays of 16-bit limbs stored in uint32,
-shape ``(n_limbs, *batch)`` -- limbs on TPU sublanes, batch on lanes, so all
-limb arithmetic vectorizes across the batch on the VPU.  These functions are
-pure jnp and trace identically inside `jax.jit` and inside Pallas kernels.
+shape ``(n_limbs, *batch)`` -- limbs on the leading axis, batch on the
+minor one, so all limb arithmetic is elementwise across the batch.
 """

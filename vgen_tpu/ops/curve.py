@@ -1,4 +1,4 @@
-"""Batched secp256k1 curve operations on TPU.
+"""Batched secp256k1 curve operations on the device.
 
 The scan hot loop uses *affine incremental addition*: per batch we hold one
 affine base point B = k*G and a replicated affine table T[i] = i*G, and
@@ -123,28 +123,6 @@ def jacobian_add_affine(X1, Y1, Z1, x2, y2, z1_is_zero=None):
     return X3, Y3, Z3
 
 
-def jacobian_add_affine_lean(X1, Y1, Z1, x2, y2):
-    """Mixed add WITHOUT the doubling/infinity fallbacks: 8M + 3S.
-
-    Returns (X3, Y3, Z3, ok) where ok=False marks H == 0 lanes (P == ±Q:
-    would need doubling or yields infinity).  For random ladder scalars the
-    probability is vanishing, so callers mask instead of paying the
-    branch-free doubling path of jacobian_add_affine (~2x the muls)."""
-    Z1Z1 = field.square(Z1)
-    U2 = field.mul(x2, Z1Z1)
-    S2 = field.mul(field.mul(y2, Z1), Z1Z1)
-    H = field.sub(U2, X1)
-    r = field.sub(S2, Y1)
-    ok = ~u256.is_zero(H)
-    HH = field.square(H)
-    HHH = field.mul(H, HH)
-    V = field.mul(X1, HH)
-    X3 = field.sub(field.sub(field.square(r), HHH), field.mul_small(V, 2))
-    Y3 = field.sub(field.mul(r, field.sub(V, X3)), field.mul(Y1, HHH))
-    Z3 = field.mul(Z1, H)
-    return X3, Y3, Z3, ok
-
-
 def jacobian_to_affine(X, Y, Z):
     """Single-point normalization (one inversion)."""
     zi = field.inv(Z)
@@ -177,8 +155,8 @@ def scalar_mul_windowed(scalar_limbs, table, window_bits: int = 8):
 
     Used by the P2TR tweak path: the reference leaves this on the CPU
     (gpu.rs:1288-1291 tweaks each candidate with the bitcoin crate); here it
-    runs on-chip.  Window digits select table rows with a one-hot matmul so
-    the gather rides the MXU instead of scatter/gather units.
+    runs on the device.  Window digits select table rows with a one-hot
+    matmul (a gather from the table is the alternative form).
     """
     assert window_bits in (4, 8, 16)
     B = scalar_limbs.shape[1]
@@ -204,8 +182,8 @@ def scalar_mul_windowed(scalar_limbs, table, window_bits: int = 8):
         digit = (limb >> shift) & jnp.uint32(D - 1)  # (B,)
         onehot = jax.nn.one_hot(digit, D, dtype=jnp.float32)  # (B, D)
         tblw = jax.lax.dynamic_index_in_dim(tbl, w, axis=0, keepdims=False)
-        # TPU f32 matmuls are single-pass bf16 (exact only <= 256): select
-        # the 16-bit limbs via two byte-plane contractions
+        # select the 16-bit limbs via two byte-plane contractions, exact
+        # under TF32 (see scalar_mul_add_windowed_affine)
         tbl_lo = tblw % 256.0
         tbl_hi = jnp.floor(tblw / 256.0)
         sel = (
@@ -270,7 +248,9 @@ def scalar_mul_add_windowed_affine(scalar_limbs, table, px, py,
         sel = (
             jnp.einsum("bd,dcl->bcl", onehot, tbl_lo)
             + 256.0 * jnp.einsum("bd,dcl->bcl", onehot, tbl_hi)
-        )  # (B, 2, 16) exact (byte planes <= 255 are bf16-exact)
+        )  # (B, 2, 16) exact: precision DEFAULT is TF32 on the gpu (11-bit
+        # significand, exact below 2^11); one-hot 0/1 times byte planes
+        # <= 255, one nonzero product per output
         tx = jnp.transpose(sel[:, 0, :]).astype(jnp.uint32)  # (16, B)
         ty = jnp.transpose(sel[:, 1, :]).astype(jnp.uint32)
         nonzero = digit != 0
@@ -278,8 +258,10 @@ def scalar_mul_add_windowed_affine(scalar_limbs, table, px, py,
         dx_nz = ~u256.is_zero(dx)
         ok = ok & (dx_nz | ~nonzero)
         dx_safe = u256.select(dx_nz, dx, ones)
+        # 32 inversions per key: unroll the chain steps 8-fold so each
+        # window launches 2*C/8 loop iterations, not 2*C
         inv = field.batch_inverse_chain(
-            dx_safe.reshape(16, C, B // C)
+            dx_safe.reshape(16, C, B // C), unroll=8
         ).reshape(16, B)
         x3, y3 = affine_add_batch(ax, ay, tx, ty, inv)
         ax = u256.select(nonzero, x3, ax)

@@ -2,10 +2,10 @@
 
 The reference encodes addresses on the HOST for every candidate -- 512K
 Base58/Bech32 string builds + regex runs per GPU batch on a rayon pool
-(gpu.rs:1030-1093).  Moving the encoders on-chip is the structural win of
-the TPU design (SURVEY.md §7): the device emits *digit symbols* in each
+(gpu.rs:1030-1093).  Moving the encoders onto the device is the structural
+win of this design (SURVEY.md §7): the device emits *digit symbols* in each
 format's alphabet, the DFA matches them directly, and no ASCII ever
-materializes off-chip except for the winners.
+materializes on the host except for the winners.
 
 Each encoder returns (symbols, length):
   symbols: (T, *B) int32 digit indices into the format's digit alphabet
@@ -74,8 +74,8 @@ def base58check_symbols(payload21, basis=None, unroll: bool = False):
     Appends the 4-byte double-SHA checksum on device, converts the 25-byte
     number to base 58 via a digit-basis matmul (sum_i bytes[i] * base58(256^i),
     exact in f32: entries < 58*256, 25-term sums < 2^19) followed by ONE
-    LSD->MSD carry sweep -- replacing 34x25 sequential divmod steps (measured
-    105ms/batch) with one MXU contraction (~2ms).  Then shifts by
+    LSD->MSD carry sweep -- replacing 34x25 sequential divmod steps with one
+    matmul.  Then shifts by
     (leading-zero-digits - leading-zero-bytes) so the emitted symbol string
     equals the canonical minimal encoding ('1' per leading zero byte).
     """
@@ -86,18 +86,16 @@ def base58check_symbols(payload21, basis=None, unroll: bool = False):
 
 def _base58_from_payload25(payload, basis=None):
     B = payload.shape[1:]
-    # DEFAULT (bf16) precision is exact here: both operands are integers
-    # < 256 (bf16-exact) and accumulation is f32.  `basis` is injectable so
-    # Pallas kernels can pass it as an input (no captured array literals).
+    # Precision DEFAULT is TF32 on the gpu (11-bit significand, exact for
+    # integers below 2^11) and exact here: basis entries are < 58, payload
+    # bytes < 256, and the f32 accumulation stays below 2^19 < 2^24.
     from vgen_tpu.ops.u256 import f32_to_u32, u32_to_f32
 
     if basis is None:
         basis = jnp.asarray(_POW256_B58)  # (34, 25)
     payload_f = u32_to_f32(payload)
     if payload_f.ndim == 3:
-        # (V, T) 2D-batch kernels: contract the byte dim directly -- a
-        # flattening reshape would be a Mosaic relayout, and 3D dot_general
-        # lowers fine (verified on-device, round 3)
+        # (V, T) 2D batches: contract the byte dim directly
         acc = f32_to_u32(
             jax.lax.dot_general(
                 basis, payload_f,
@@ -127,8 +125,7 @@ def _base58_from_payload25(payload, basis=None):
     # carry out of digit 33 is provably 0 for 25-byte values with version 0/5
     digits = jnp.stack(digits_lsd[::-1])  # (34, *B) MSD first
 
-    # leading zero bytes of payload / zero digits (unrolled prefix-product:
-    # stays Pallas/Mosaic-compatible, unlike cumprod)
+    # leading zero bytes of payload / zero digits (unrolled prefix-product)
     def _leading_zeros(rows):
         prefix = jnp.ones(rows.shape[1:], dtype=jnp.int32)
         count = jnp.zeros(rows.shape[1:], dtype=jnp.int32)
@@ -143,7 +140,7 @@ def _base58_from_payload25(payload, basis=None):
     length = jnp.int32(34) - shift
 
     # branchless data-dependent shift: select among the 22 possible static
-    # shifts (gather-free -- TPU's gather unit serializes per element)
+    # shifts (gather-free)
     digits_i = jax.lax.bitcast_convert_type(digits, jnp.int32)
     pad_rows = jnp.zeros((21,) + tuple(B), dtype=jnp.int32)
     ext = jnp.concatenate([digits_i, pad_rows], axis=0)  # (55, *B)
@@ -238,8 +235,7 @@ def eth_symbols(addr20, unroll: bool = False):
         nibbles.append(addr20[i] & jnp.uint32(0xF))
     nib = jnp.stack(nibbles)  # (40, *B) values 0..15
 
-    # gather-free lowercase-hex ASCII ('0'=48, 'a'-10=87): keeps the whole
-    # EIP-55 second keccak Mosaic-compatible (no captured table, no gather)
+    # gather-free lowercase-hex ASCII ('0'=48, 'a'-10=87)
     ascii_lower = nib + jnp.uint32(48) + jnp.where(
         nib >= 10, jnp.uint32(39), jnp.uint32(0)
     )
@@ -283,8 +279,8 @@ def hash160_33_words_from_x(x_limbs, parity):
     straight from (16,*B) 16-bit limbs via the partial-evaluated word path
     (no byte materialization anywhere).  parity: int 2/3 or traced row.
 
-    Fully-unrolled: intended for Pallas kernels and XLA:TPU tails; the
-    byte-level hash160_33 remains for fori_loop-friendly XLA:CPU paths."""
+    Fully-unrolled: the gpu tails (scan.route unroll); the byte-level
+    hash160_33 remains for fori_loop-friendly XLA:CPU paths."""
     return dev_ripemd.ripemd160_sha_state_words(
         dev_sha.sha256_x33_state(x_limbs, parity)
     )

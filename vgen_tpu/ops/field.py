@@ -1,4 +1,4 @@
-"""secp256k1 base field F_p arithmetic, batched on TPU.
+"""secp256k1 base field F_p arithmetic, batched on the device.
 
 p = 2^256 - 2^32 - 977, so 2^256 === 2^32 + 977 (mod p): reduction is two
 cheap folds plus one conditional subtract -- the same identity the reference
@@ -209,8 +209,7 @@ def inv(a):
     """a^(p-2): Fermat inversion via the secp256k1 addition chain.
 
     255 squarings + 15 multiplies (~270 sequential steps vs 510 for the
-    binary ladder -- on TPU each sequential step pays kernel-dispatch
-    latency, so step count matters more than op shape).  Square-runs use
+    binary ladder).  Square-runs use
     fori_loop to keep the trace at ~26 mul bodies.  Chain verified == p-2
     in tests.  The reference unrolls 256 square-and-multiply steps per
     element (shaders/field.wgsl:195-210)."""
@@ -244,7 +243,7 @@ def inv(a):
     return normalize_weak_to_canonical(t)
 
 
-def batch_inverse_chain(values, chain_axis: int = 0, unroll: int = 8):
+def batch_inverse_chain(values, chain_axis: int = 0, unroll: int = 1):
     """Montgomery batch inversion along axis `chain_axis` of a limb array.
 
     values: (16, C, *rest) with chain length C along the given batch axis
@@ -253,10 +252,13 @@ def batch_inverse_chain(values, chain_axis: int = 0, unroll: int = 8):
     in their own slot AND would poison the chain -- callers must pre-replace
     zeros (see curve.batch_normalize).
 
-    unroll: lax.scan unroll factor -- the 2*C dependent mul steps run as an
-    XLA while loop whose per-iteration overhead dominates at the narrow
-    (16, n_chains) step shapes the chip wants (measured round 3:
-    scripts/sweep_inv_chain.py); unrolling amortizes it.
+    The chain-total inverse is pow_const(., p-2): its ladder body is one
+    square and one multiply, where inv's addition chain traces ~26
+    multiplies -- on the gpu, compile time grows with every traced multiply
+    (PERF.md), and the ladder runs once per dispatch over all chains.
+
+    unroll: lax.scan unroll factor for the 2*C dependent mul steps (each
+    unrolled step is one more traced multiply to compile).
     """
     assert chain_axis == 0, "chains run along the first batch axis"
     vals_t = jnp.moveaxis(values, 1, 0)  # (C, 16, *rest)
@@ -269,7 +271,7 @@ def batch_inverse_chain(values, chain_axis: int = 0, unroll: int = 8):
 
     # prefix[k] = v0*..*vk
     _, prefix = jax.lax.scan(fwd, ones, vals_t, unroll=unroll)
-    total_inv = inv(prefix[-1])
+    total_inv = pow_const(prefix[-1], P_INT - 2)
     prefix_excl = jnp.concatenate([ones[None], prefix[:-1]], axis=0)
 
     def bwd(acc, xs):

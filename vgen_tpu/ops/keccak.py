@@ -1,15 +1,14 @@
-"""Batched Keccak-256 on TPU with 64-bit lanes emulated as uint32 pairs.
+"""Batched Keccak-256 with 64-bit lanes emulated as uint32 pairs.
 
 The reference never ran Keccak on-device (Ethereum was CPU-only,
 lib.rs:316-319); here both the address hash (64-byte pubkey coordinates)
-and the EIP-55 checksum hash (40 ASCII hex chars) run on-chip.  Both inputs
+and the EIP-55 checksum hash (40 ASCII hex chars) run on the device.  Both inputs
 fit a single 136-byte-rate block, so absorption is constant-shaped.
 
 State: two (25, *B) uint32 arrays (hi, lo), lane index x + 5*y.  Rotations
 are static per lane, so the round body unrolls with shifts only.  The 24
-rounds run under fori_loop by default (fast XLA compiles); Pallas kernels
-pass unroll=True to get scalar iota constants with no captured arrays and
-no dynamic indexing (Mosaic rejects both).
+rounds run under fori_loop by default (fast XLA compiles); unroll=True
+emits static rounds with scalar iota constants (scan.route's word path).
 """
 
 from __future__ import annotations
@@ -73,8 +72,7 @@ def keccak_f1600(hi, lo, unroll: bool = False):
 
     unroll=False (jit/XLA): 24 rounds under fori_loop with the round
     constants indexed per iteration -- compiles ~24x less graph.
-    unroll=True (Pallas): static rounds with scalar iota constants, since
-    Mosaic rejects captured constant arrays and dynamic indexing."""
+    unroll=True: static rounds with scalar iota constants."""
 
     if not unroll:
         rc_hi = jnp.asarray(_RC_HI)

@@ -27,68 +27,15 @@ U32 = jnp.uint32
 TOP_K = 16  # fixed result slots per batch (SURVEY.md §7 hard part (d))
 
 
-def match_symbols(dfa_flat, dfa_accept, start: int, width: int, syms, length):
+def match_symbols(dfa_flat, dfa_accept, start, width: int, syms, length):
     """Run the projected DFA over (T,*B) symbols with EOS/PAD overlay.
 
     dfa_flat: (S*width,) int32 flattened transition table.
     width = n_digits + 2; EOS = width-2, PAD = width-1.
 
-    TPU-native formulation: the naive per-char `table[state*W + sym]` gather
-    serializes on the gather unit (~7 cycles/element: measured 72ms/batch =
-    the whole pipeline's bottleneck) and compiles terribly.  Instead the
-    state is carried as a one-hot (S, B) f32 matrix and each step is
-        R = T_f32 @ sym_onehot        (S,W)@(W,B) -- MXU
-        next_id = sum_s state1h * R   (VPU reduce)
-        state1h' = onehot(next_id)    (VPU compare)
-    All quantities are small ints, exact in f32.  ~2 Gflop/char rides the
-    MXU at full batch width instead of 262K serialized lookups.
-    """
-    T = syms.shape[0]
-    B = syms.shape[1]
-    S = dfa_flat.shape[0] // width
-    # TPU f32 dots are single-pass bf16: state ids stay exact only up to 256,
-    # so larger automata use two byte-plane dots (see u256.mul_wide)
-    table_i = dfa_flat.reshape(S, width)
-    table = table_i.astype(jnp.float32)
-    table_hi = (table_i // 256).astype(jnp.float32) if S > 256 else None
-    table_lo = (table_i % 256).astype(jnp.float32) if S > 256 else None
-    eos = jnp.int32(width - 2)
-    pad = jnp.int32(width - 1)
-    wids = jnp.arange(width, dtype=jnp.int32)[:, None]  # (W, 1)
-    sids = jnp.arange(S, dtype=jnp.int32)[:, None]  # (S, 1)
-
-    state1h0 = (sids == start).astype(jnp.float32)  # (S, 1)
-    state1h0 = jnp.broadcast_to(state1h0, (S, B))
-
-    def body(j, state1h):
-        row = jax.lax.dynamic_index_in_dim(
-            syms, jnp.minimum(j, T - 1), 0, keepdims=False
-        )
-        sym = jnp.where(j < length, row, jnp.where(j == length, eos, pad))
-        sym1h = (wids == sym[None, :]).astype(jnp.float32)  # (W, B)
-        if S > 256:
-            R = jax.lax.dot(
-                table_lo, sym1h, preferred_element_type=jnp.float32
-            ) + 256.0 * jax.lax.dot(
-                table_hi, sym1h, preferred_element_type=jnp.float32
-            )
-        else:
-            R = jax.lax.dot(
-                table, sym1h, preferred_element_type=jnp.float32,
-            )  # (S, B): R[s, b] = T[s, sym_b]
-        next_id = jnp.sum(state1h * R, axis=0)  # (B,) exact small ints
-        return (sids.astype(jnp.float32) == next_id[None, :]).astype(
-            jnp.float32
-        )
-
-    state1h = jax.lax.fori_loop(0, T + 1, body, state1h0)
-    acc = jnp.sum(state1h * dfa_accept.astype(jnp.float32)[:, None], axis=0)
-    return acc > 0.5
-
-
-def match_symbols_gather(dfa_flat, dfa_accept, start: int, width: int, syms,
-                         length):
-    """Reference gather-based DFA runner (slow on TPU; kept for testing)."""
+    One table gather per symbol: the int32 state is the only per-key
+    carry, and the table (at most a few hundred states x 60 symbols) stays
+    in cache.  Returns (*B,) int32 accept flags."""
     T = syms.shape[0]
     B = syms.shape[1:]
     eos = jnp.int32(width - 2)
@@ -198,22 +145,11 @@ _TAPTWEAK_MIDSTATE = sha256.tagged_midstate("TapTweak")
 
 
 def p2tr_output_key(x, y, window_table, unroll: bool = False):
-    """Taproot output key: even-Y normalize, TapTweak on-chip, Q = P + t*G.
+    """Taproot output key: even-Y normalize, TapTweak on device, Q = P + t*G.
 
     The reference computes the tweak per candidate on the CPU
-    (gpu.rs:1282-1291); here the windowed ladder keeps it on-chip.
+    (gpu.rs:1282-1291); here the windowed ladder keeps it on the device.
     Returns (qx (16,*B) limbs, ok mask)."""
-    # Q = P_internal + t*G.  On accelerators (unroll=True) the whole
-    # pipeline (even-Y normalize, tagged hash, ladder) runs in a
-    # VMEM-resident Pallas kernel with Jacobian accumulation + ONE batch
-    # normalization -- the XLA while-loop ladder was copy/spill-bound
-    # (~70% of its time moving the accumulator state, device profile r2).
-    # The fori_loop affine ladder keeps XLA:CPU compiles small for
-    # tests/fallback.
-    if unroll:
-        from vgen_tpu.ops import pallas_fused
-
-        return pallas_fused.p2tr_output_key_pallas(x, y, window_table)
     B = x.shape[1:]
     y_even = u256.select(y[0] & jnp.uint32(1) == 0, y, field.neg(y))
     xb = u256.to_bytes_be(x)
@@ -281,7 +217,49 @@ def jitted_points_step(chain_len: int = 256):
     )
 
 
-def glv_variant_symbols(fmt: AddressFormat, xv, yv, pi: int,
+def _compressed_bytes(xv, pi):
+    """(33, *B) compressed pubkey bytes with prefix 2 + pi (pi: int or a
+    traced (*B,) row)."""
+    xb = u256.to_bytes_be(xv)
+    prefix = (jnp.full((1,) + xb.shape[1:], 2 + pi, dtype=U32)
+              if isinstance(pi, int) else (jnp.uint32(2) + pi)[None])
+    return jnp.concatenate([prefix, xb], axis=0)
+
+
+def glv_variants(fmt: AddressFormat, x3, y3):
+    """The 6 GLV variant points of every key, stacked along the first batch
+    axis in bit order 2v+pi: (X (16, 6*B0, ...), Y or None, PI row).
+
+    One hash over all six variants keeps the program (and XLA's compile
+    time) one variant wide.  X = BETA^v * x; for GLV_EXACT_Y formats Y is
+    +y (pi=0) or -y (pi=1), otherwise Y is None and pi is the compressed
+    prefix parity."""
+    from vgen_tpu.crypto import secp256k1 as ec
+
+    shape = x3.shape[1:]
+    xs = (x3, field.mul(x3, u256.constant(ec.BETA, shape)),
+          field.mul(x3, u256.constant(ec.BETA2, shape)))
+    X = jnp.concatenate([xv for xv in xs for _ in range(2)], axis=1)
+    Y = None
+    if fmt in GLV_EXACT_Y:
+        ny = field.neg(y3)
+        Y = jnp.concatenate([y3, ny] * 3, axis=1)
+    PI = jnp.concatenate(
+        [jnp.full(shape, pi, dtype=U32) for _ in range(3) for pi in (0, 1)],
+        axis=0,
+    )
+    return X, Y, PI
+
+
+def variant_bits(m):
+    """(6*B0, ...) per-variant matches (glv_variants order) -> (B0, ...)
+    int32 mask with bit 2v+pi set per matching variant."""
+    m = m.reshape((6, m.shape[0] // 6) + m.shape[1:]).astype(jnp.int32)
+    shifts = jnp.arange(6, dtype=jnp.int32).reshape((6,) + (1,) * (m.ndim - 1))
+    return jnp.sum(m << shifts, axis=0)
+
+
+def glv_variant_symbols(fmt: AddressFormat, xv, yv, pi,
                         b58_basis=None, unroll: bool = False):
     """Address symbols for one GLV variant point: x-coordinate xv with
     compressed-pubkey parity index pi (prefix byte 2+pi); yv is the ±y
@@ -291,9 +269,10 @@ def glv_variant_symbols(fmt: AddressFormat, xv, yv, pi: int,
     a per-index bitmask with bit 2v+pi set for variant (xv=β^v·x, parity
     pi), and the host derives ONLY the candidates
     crypto.secp256k1.glv_bit_variant_keys maps from those bits.  The
-    pairing is pinned by tests/test_glv_bits.py and
-    scripts/validate_fused.py (vbits_ok) -- do not reorder one side
-    without the other."""
+    pairing is pinned by tests/test_glv_bits.py and the oracle check
+    (scan/oracle.py) -- do not reorder one side without the other.
+
+    pi: int, or a traced row of parity indices (glv_variants)."""
     if fmt == AddressFormat.ETHEREUM:
         if unroll:
             acct = encode.words_to_bytes_be(
@@ -325,9 +304,7 @@ def glv_variant_symbols(fmt: AddressFormat, xv, yv, pi: int,
                 5, encode.script_hash_words(h160w), b58_basis
             )
         raise ValueError(fmt)
-    xb = u256.to_bytes_be(xv)
-    prefix = jnp.full((1,) + xb.shape[1:], 2 + pi, dtype=U32)
-    h160 = encode.hash160_33(jnp.concatenate([prefix, xb], axis=0))
+    h160 = encode.hash160_33(_compressed_bytes(xv, pi))
     if fmt == AddressFormat.P2PKH:
         return encode.base58check_symbols(_base58_payload(0, h160), b58_basis)
     if fmt == AddressFormat.P2WPKH:
@@ -337,16 +314,6 @@ def glv_variant_symbols(fmt: AddressFormat, xv, yv, pi: int,
             _base58_payload(5, script_hash(h160)), b58_basis
         )
     raise ValueError(fmt)
-
-
-def xla_tail_unroll() -> bool:
-    """Whether jitted XLA tails should use the unrolled (word-path) hash
-    forms: yes on accelerators; no on XLA:CPU, whose -O0 builds evaluate a
-    64-round unrolled DAG as an expression tree (minutes per compile)."""
-    try:
-        return jax.default_backend() != "cpu"
-    except Exception:  # pragma: no cover
-        return False
 
 
 def make_format_mask(fmt: AddressFormat, unroll: bool = False,
@@ -367,29 +334,11 @@ def make_format_mask(fmt: AddressFormat, unroll: bool = False,
 
         if glv:
             assert fmt in GLV_FORMATS, fmt
-            from vgen_tpu.crypto import secp256k1 as ec
-
-            beta = u256.constant(ec.BETA, x3.shape[1:])
-            beta2 = u256.constant(ec.BETA2, x3.shape[1:])
-            ys = (
-                (y3, field.neg(y3))
-                if fmt in GLV_EXACT_Y else (None, None)
-            )
-            bits = jnp.zeros(B, dtype=jnp.int32)
-            for v, xv in enumerate(
-                (x3, field.mul(x3, beta), field.mul(x3, beta2))
-            ):
-                for pi in range(2):
-                    syms, length = glv_variant_symbols(
-                        fmt, xv, ys[pi], pi, unroll=unroll
-                    )
-                    m = match_symbols(
-                        dfa_flat, dfa_accept, start, width, syms, length
-                    )
-                    bits = bits | jnp.where(
-                        m.astype(bool), jnp.int32(1 << (2 * v + pi)), 0
-                    )
-            return jnp.where(valid, bits, 0), valid
+            X, Y, PI = glv_variants(fmt, x3, y3)
+            syms, length = glv_variant_symbols(fmt, X, Y, PI, unroll=unroll)
+            m = match_symbols(dfa_flat, dfa_accept, start, width, syms,
+                              length)
+            return jnp.where(valid, variant_bits(m), 0), valid
 
         if fmt == AddressFormat.P2TR:
             syms, length, mvalid = symbols_p2tr(x3, y3, extras[0], valid,
@@ -492,10 +441,11 @@ def jitted_format_tail(fmt: AddressFormat, unroll: bool = False,
 
 
 def run_scan_step(fmt, bx, by, tx, ty, dfa_flat, dfa_accept, start, remaining,
-                  extras=(), chain_len: int = 256, glv: bool = False):
+                  extras=(), chain_len: int = 256, glv: bool = False,
+                  unroll: bool = False):
     """Convenience wrapper: shared points stage + per-format tail."""
     x3, y3, valid = jitted_points_step(chain_len)(bx, by, tx, ty)
-    return jitted_format_tail(fmt, xla_tail_unroll(), glv)(
+    return jitted_format_tail(fmt, unroll, glv)(
         x3, y3, valid, dfa_flat, dfa_accept, jnp.int32(start),
         jnp.int32(remaining), *extras
     )
@@ -522,9 +472,7 @@ def pack_result(res: StepResult):
 
 # ---------------------------------------------------------------------------
 # Interval (anchored-prefix) matching: the pattern/intervals.py fast path.
-# Shared jnp helpers -- the same code traces in the XLA tail here (any
-# backend, multi-chip shard_map) and inside the Pallas kernels
-# (ops/pallas_fused.py).  Matching compares the format's device-checked
+# Matching compares the format's device-checked
 # value (hash160 / account bytes / taproot output key) against precompiled
 # inclusive [lo, hi] word intervals instead of encode+DFA.
 # ---------------------------------------------------------------------------
@@ -605,8 +553,8 @@ def script_hash(h160, unroll: bool = False):
 def eth_account(x3, y3, unroll: bool = False):
     """(20, T) Ethereum account bytes = keccak256(x||y)[12:].
 
-    unroll=True statically unrolls the keccak rounds (required inside
-    Pallas kernels; see ops/keccak.keccak_f1600)."""
+    unroll=True statically unrolls the keccak rounds (see
+    ops/keccak.keccak_f1600)."""
     pub64 = jnp.concatenate(
         [u256.to_bytes_be(x3), u256.to_bytes_be(y3)], axis=0
     )
@@ -660,7 +608,7 @@ def in_intervals(words, lo, hi):
     """Lexicographic lo <= words <= hi over the (static) slot dimension.
 
     words: list of W (T,) uint32 rows; lo/hi: (n_slots, W) uint32 bound
-    tables (jnp arrays or Pallas SMEM refs -- both index the same)."""
+    tables."""
     n = len(words)
     matched = None
     for j in range(lo.shape[0]):
@@ -685,57 +633,25 @@ def glv_interval_mask(fmt: AddressFormat, x3, y3, lo, hi,
     the ± pair is exactly the two compressed-prefix parities, so y3 is never
     consulted (pass None); GLV_EXACT_Y formats (Ethereum, uncompressed
     p2pkh) hash full coordinates so y3 is required."""
-    from vgen_tpu.crypto import secp256k1 as ec
-
-    beta = u256.constant(ec.BETA, x3.shape[1:])
-    beta2 = u256.constant(ec.BETA2, x3.shape[1:])
-    ys = (y3, field.neg(y3)) if fmt in GLV_EXACT_Y else None
-    mask = jnp.zeros(x3.shape[1:], dtype=jnp.int32)
-    for v, xv in enumerate((x3, field.mul(x3, beta), field.mul(x3, beta2))):
-        xb = None if unroll else u256.to_bytes_be(xv)
-        for pi in range(2):
-            if fmt == AddressFormat.ETHEREUM:
-                if unroll:
-                    words = keccak.eth_account_words_from_xy(
-                        xv, ys[pi], unroll=True
-                    )
-                    m = in_intervals(words, lo, hi)
-                    mask = mask | jnp.where(
-                        m, jnp.int32(1 << (2 * v + pi)), 0
-                    )
-                    continue
-                h = eth_account(xv, ys[pi], unroll=unroll)
-            elif fmt == AddressFormat.P2PKH_UNCOMPRESSED:
-                if unroll:
-                    words = encode.hash160_65_words_from_xy(xv, ys[pi])
-                    m = in_intervals(words, lo, hi)
-                    mask = mask | jnp.where(
-                        m, jnp.int32(1 << (2 * v + pi)), 0
-                    )
-                    continue
-                h = encode.hash160_65(
-                    uncompressed_pubkey_bytes(xv, ys[pi]), unroll=unroll
-                )
-            elif unroll:
-                # word path: int parity folds into the schedule constant
-                words = encode.hash160_33_words_from_x(xv, 2 + pi)
-                if fmt == AddressFormat.P2SH_P2WPKH:
-                    words = encode.script_hash_words(words)
-                m = in_intervals(words, lo, hi)
-                mask = mask | jnp.where(m, jnp.int32(1 << (2 * v + pi)), 0)
-                continue
-            else:
-                prefix = jnp.full(
-                    (1,) + xb.shape[1:], 2 + pi, dtype=jnp.uint32
-                )
-                h = encode.hash160_33(
-                    jnp.concatenate([prefix, xb], axis=0), unroll=unroll
-                )
-                if fmt == AddressFormat.P2SH_P2WPKH:
-                    h = script_hash(h, unroll=unroll)
-            m = in_intervals(bytes_be_words(h), lo, hi)
-            mask = mask | jnp.where(m, jnp.int32(1 << (2 * v + pi)), 0)
-    return mask
+    X, Y, PI = glv_variants(fmt, x3, y3)
+    if fmt == AddressFormat.ETHEREUM:
+        words = (keccak.eth_account_words_from_xy(X, Y, unroll=True)
+                 if unroll else bytes_be_words(eth_account(X, Y)))
+    elif fmt == AddressFormat.P2PKH_UNCOMPRESSED:
+        words = (encode.hash160_65_words_from_xy(X, Y) if unroll
+                 else bytes_be_words(encode.hash160_65(
+                     uncompressed_pubkey_bytes(X, Y))))
+    elif unroll:
+        # word path: the parity row folds into the schedule
+        words = encode.hash160_33_words_from_x(X, 2 + PI)
+        if fmt == AddressFormat.P2SH_P2WPKH:
+            words = encode.script_hash_words(words)
+    else:
+        h = encode.hash160_33(_compressed_bytes(X, PI))
+        if fmt == AddressFormat.P2SH_P2WPKH:
+            h = script_hash(h)
+        words = bytes_be_words(h)
+    return variant_bits(in_intervals(words, lo, hi))
 
 
 def make_range_mask(fmt: AddressFormat, glv: bool = False,
@@ -764,9 +680,7 @@ def make_range_mask(fmt: AddressFormat, glv: bool = False,
 def make_range_tail(fmt: AddressFormat, glv: bool = False,
                     unroll: bool = False):
     """Interval-matching tail: (x3, y3, valid, lo, hi, remaining, *extras)
-    -> StepResult.  The XLA counterpart of the fused Pallas range kernel --
-    used on non-TPU backends and under shard_map on device meshes
-    (unroll=True selects the word-path hashes there)."""
+    -> StepResult.  unroll=True selects the word-path hashes."""
     mask = make_range_mask(fmt, glv, unroll)
 
     def tail(x3, y3, valid, lo, hi, remaining, *extras):
@@ -783,59 +697,73 @@ def jitted_range_tail(fmt: AddressFormat, glv: bool = False,
 
 
 def run_range_scan_step(fmt, bx, by, tx, ty, lo, hi, remaining,
-                        extras=(), chain_len: int = 256, glv: bool = False):
+                        extras=(), chain_len: int = 256, glv: bool = False,
+                        unroll: bool = False):
     """Convenience wrapper: shared points stage + interval tail."""
     x3, y3, valid = jitted_points_step(chain_len)(bx, by, tx, ty)
-    return jitted_range_tail(fmt, glv, xla_tail_unroll())(
+    return jitted_range_tail(fmt, glv, unroll)(
         x3, y3, valid, jnp.asarray(lo), jnp.asarray(hi),
         jnp.int32(remaining), *extras
     )
 
 
-@functools.lru_cache(maxsize=16)
-def packed_xla_scan_step(fmt: AddressFormat, kind: str, glv: bool,
-                         chain_len: int, k_sub: int, unroll: bool,
-                         n_extras: int = 0):
-    """k_sub-window packed scan step for formats WITHOUT a fused Pallas
-    kernel (P2TR's windowed TapTweak ladder lives in the XLA tail): scans
-    k_sub consecutive key windows per dispatch and returns one packed
-    (k_sub, PACKED_WIDTH) result, amortizing the host<->device round trip
-    exactly like ops/pallas_fused.fused_scan_step does for the fused
-    formats.
+def packed_scan_fn(fmt: AddressFormat, kind: str, glv: bool, chain_len: int,
+                   k_sub: int, unroll: bool, with_masks: bool = False):
+    """k_sub-window packed scan step (un-jitted, so the mesh can shard_map
+    it): scans k_sub consecutive key windows per dispatch and returns one
+    packed (k_sub, PACKED_WIDTH) result, amortizing the host<->device
+    round trip over k_sub windows.  with_masks: also return the (k_sub, B)
+    int32 match masks (make_range_mask / make_format_mask layout), which
+    stay on the device unless a window overflows its TOP_K slots.
+
+    The k_sub windows run as ONE batch of k_sub*B keys (window k pairs its
+    base point with the whole i*G table), so the sequential parts -- the
+    inversion chains, the field inversion, the hash and DFA loops -- run
+    once per dispatch over k_sub times the lanes instead of once per
+    window.
 
     kind: "range" (margs = (lo, hi)) or "dfa" (margs = (dfa_flat,
     dfa_accept, start)).  Signature: step(bx (K,16), by (K,16), tx, ty,
-    remaining (K,), *margs, *extras) -> (K, PACKED_WIDTH) int32."""
-    tail = (
-        make_range_tail(fmt, glv, unroll) if kind == "range"
-        else make_format_tail(fmt, unroll, glv)
+    remaining (K,), *margs, *extras) -> (K, PACKED_WIDTH) int32
+    [, (K, B) int32]."""
+    mask = (
+        make_range_mask(fmt, glv, unroll) if kind == "range"
+        else make_format_mask(fmt, unroll, glv)
     )
     n_margs = 2 if kind == "range" else 3
+    ops_mult = 6 if glv else 1
 
     def step(bx, by, tx, ty, remaining, *args):
         margs = args[:n_margs]
         extras = args[n_margs:]
+        K, B = bx.shape[0], tx.shape[1]
+        x3, y3, valid = curve.batch_affine_add(
+            jnp.repeat(bx.T, B, axis=1), jnp.repeat(by.T, B, axis=1),
+            jnp.tile(tx, (1, K)), jnp.tile(ty, (1, K)), chain_len=chain_len,
+        )
+        idx = jnp.arange(B, dtype=jnp.int32)
+        valid = valid & (idx[None, :] < remaining[:, None]).reshape(K * B)
+        bits, mvalid = mask(x3, y3, valid, *margs, jnp.int32(K * B), *extras)
+        bits = bits.reshape(K, B)
+        res = jax.vmap(lambda b, v: mask_to_result(b, v, ops_mult))(
+            bits, mvalid.reshape(K, B)
+        )
+        packed = jnp.concatenate(
+            [res.count[:, None], res.ops[:, None], res.indices, res.vbits],
+            axis=1,
+        )
+        return (packed, bits) if with_masks else packed
 
-        def one(bxk, byk, remk):
-            x3, y3, valid = curve.batch_affine_add(
-                bxk, byk, tx, ty, chain_len=chain_len
-            )
-            res = tail(x3, y3, valid, *margs, remk, *extras)
-            return jnp.concatenate(
-                [res.count[None], res.ops[None], res.indices, res.vbits]
-            )
+    return step
 
-        if k_sub == 1:
-            return one(bx[0], by[0], remaining[0])[None]
 
-        def body(_, xs):
-            bxk, byk, remk = xs
-            return None, one(bxk, byk, remk)
-
-        _, outs = jax.lax.scan(body, None, (bx, by, remaining))
-        return outs
-
-    return jax.jit(step)
+@functools.lru_cache(maxsize=16)
+def packed_xla_scan_step(fmt: AddressFormat, kind: str, glv: bool,
+                         chain_len: int, k_sub: int, unroll: bool):
+    """Jitted packed_scan_fn with masks: the single-device gpu scan step,
+    -> ((K, PACKED_WIDTH) packed results, (K, B) match masks)."""
+    return jax.jit(packed_scan_fn(fmt, kind, glv, chain_len, k_sub, unroll,
+                                  with_masks=True))
 
 
 # ---------------------------------------------------------------------------
@@ -868,20 +796,21 @@ def _jitted_range_mask(fmt: AddressFormat, glv: bool = False,
 
 def run_scan_mask(fmt, bx, by, tx, ty, dfa_flat, dfa_accept, start,
                   remaining, extras=(), chain_len: int = 256,
-                  glv: bool = False):
+                  glv: bool = False, unroll: bool = False):
     """Full (B,) int32 match mask for one window (DFA path)."""
     x3, y3, valid = jitted_points_step(chain_len)(bx, by, tx, ty)
-    return _jitted_format_mask(fmt, xla_tail_unroll(), glv)(
+    return _jitted_format_mask(fmt, unroll, glv)(
         x3, y3, valid, dfa_flat, dfa_accept, jnp.int32(start),
         jnp.int32(remaining), *extras
     )
 
 
 def run_range_scan_mask(fmt, bx, by, tx, ty, lo, hi, remaining,
-                        extras=(), chain_len: int = 256, glv: bool = False):
+                        extras=(), chain_len: int = 256, glv: bool = False,
+                        unroll: bool = False):
     """Full (B,) int32 match mask for one window (interval path)."""
     x3, y3, valid = jitted_points_step(chain_len)(bx, by, tx, ty)
-    return _jitted_range_mask(fmt, glv, xla_tail_unroll())(
+    return _jitted_range_mask(fmt, glv, unroll)(
         x3, y3, valid, jnp.asarray(lo), jnp.asarray(hi),
         jnp.int32(remaining), *extras
     )

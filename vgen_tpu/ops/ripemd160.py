@@ -1,4 +1,4 @@
-"""Batched RIPEMD-160 on TPU, specialized to 32-byte inputs (SHA-256 digests).
+"""Batched RIPEMD-160, specialized to 32-byte inputs (SHA-256 digests).
 
 Device counterpart of shaders/ripemd160.wgsl:1-100 (which is likewise
 specialized to the hash160 use).  Structure: fori_loop over the 5 rounds,

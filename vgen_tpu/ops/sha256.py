@@ -1,4 +1,4 @@
-"""Batched SHA-256 on TPU (uint32 lanes over the batch dimension).
+"""Batched SHA-256 (uint32 lanes over the batch dimension).
 
 Device counterpart of the reference's single-block-specialized WGSL SHA-256
 (shaders/sha256.wgsl:1-170) plus the TapTweak midstate variant the reference
@@ -7,9 +7,8 @@ our fixed-size inputs (33-byte pubkey, 25-byte address payload, 32-byte
 digests) are built with constant padding baked in.
 
 Structure: one round per fori_loop iteration under jit (rotating schedule
-buffer, dynamic K lookup), fully unrolled with scalar constants inside
-Pallas kernels (unroll=True) where Mosaic rejects captured arrays and the
-round chain is register-resident anyway.
+buffer, dynamic K lookup), or fully unrolled with scalar constants
+(unroll=True, scan.route's word path).
 """
 
 from __future__ import annotations
@@ -53,14 +52,17 @@ def _rotr(x, n: int):
 def compress(state, w, unroll: bool = False):
     """One SHA-256 compression: state (8,*B) or list, w list of 16 (*B,) words.
 
-    unroll=True (Pallas kernels): 64 static rounds with scalar K constants
-    -- no captured arrays and no dynamic indexing (Mosaic rejects both).
-    unroll=False (jit/XLA, the default): one round per fori_loop iteration
-    with a rotating 16-word schedule buffer.  The unrolled form's 64-round
-    reconvergent DAG makes some XLA:CPU builds evaluate it as an expression
-    TREE (cost grows ~2.4x per round -- minutes per batch); the loop body
-    stays under that cliff and the sequential rounds can't be parallelized
-    anyway.
+    unroll=True: 64 static rounds with scalar K constants -- no captured
+    arrays and no dynamic indexing.
+    unroll=False (jit/XLA, the default): rounds 0-15 traced statically,
+    then a fori_loop over three 16-round blocks, each first advancing the
+    16-word schedule in place.  Sixteen rounds per iteration bring every
+    state and schedule word back to its own slot, so the loop carry is
+    recomputed whole and never shuffled (a one-round body rotates the
+    carry, and on the gpu those copies were most of the step).  The
+    unrolled form's 64-round reconvergent DAG makes some XLA:CPU builds
+    evaluate it as an expression TREE (minutes per batch); a 16-round body
+    stays under that cliff.
     Returns the new (8, *B) state (IV-added)."""
     if unroll:
         return jnp.stack(compress_pe([state[i] for i in range(8)], w))
@@ -69,33 +71,40 @@ def compress(state, w, unroll: bool = False):
     st0 = jnp.stack([state[i] for i in range(8)])
     from vgen_tpu.ops import bitops as bo
 
-    w = [bo.materialize(w[i], st0.shape[1:], jnp) for i in range(16)]
-    # rotating schedule buffer: at round t, buf[i] = w[t-16+i] (mod history);
-    # rounds 0-15 pop buf[0] and push it back unchanged, so at round 16 the
-    # buffer again holds w[0..15] and the recurrence
-    # w[t] = w[t-16] + s0(w[t-15]) + w[t-7] + s1(w[t-2]) reads static slots
-    # buf[0], buf[1], buf[9], buf[14].
-    buf0 = jnp.stack([w[i] for i in range(16)])
+    w = tuple(bo.materialize(w[i], st0.shape[1:], jnp) for i in range(16))
 
-    def round_body(t, carry):
-        stv, buf = carry
-        a, b, c, d, e, f, g, h = [stv[i] for i in range(8)]
-        s0 = _rotr(buf[1], 7) ^ _rotr(buf[1], 18) ^ (buf[1] >> 3)
-        s1 = _rotr(buf[14], 17) ^ _rotr(buf[14], 19) ^ (buf[14] >> 10)
-        wnew = buf[0] + s0 + buf[9] + s1
-        wt = jnp.where(t < 16, buf[0], wnew)
-        S1 = _rotr(e, 6) ^ _rotr(e, 11) ^ _rotr(e, 25)
-        ch = (e & f) ^ (~e & g)
-        t1 = h + S1 + ch + kvec[t] + wt
-        S0 = _rotr(a, 2) ^ _rotr(a, 13) ^ _rotr(a, 22)
-        maj = (a & b) ^ (a & c) ^ (b & c)
-        t2 = S0 + maj
-        nst = jnp.stack([t1 + t2, a, b, c, d + t1, e, f, g])
-        nbuf = jnp.concatenate([buf[1:], wt[None]], axis=0)
-        return nst, nbuf
+    def rounds16(st, ws, ks):
+        a, b, c, d, e, f, g, h = st
+        for i in range(16):
+            S1 = _rotr(e, 6) ^ _rotr(e, 11) ^ _rotr(e, 25)
+            ch = (e & f) ^ (~e & g)
+            t1 = h + S1 + ch + ks[i] + ws[i]
+            S0 = _rotr(a, 2) ^ _rotr(a, 13) ^ _rotr(a, 22)
+            maj = (a & b) ^ (a & c) ^ (b & c)
+            a, b, c, d, e, f, g, h = t1 + S0 + maj, a, b, c, d + t1, e, f, g
+        return (a, b, c, d, e, f, g, h)
 
-    stv, _ = jax.lax.fori_loop(0, 64, round_body, (st0, buf0))
-    return stv + st0
+    def next_schedule(ws):
+        # w[t] = w[t-16] + s0(w[t-15]) + w[t-7] + s1(w[t-2]), in place over
+        # the 16 slots (slot i holds w[t] for t = i mod 16)
+        ws = list(ws)
+        for i in range(16):
+            x1, x14 = ws[(i + 1) % 16], ws[(i + 14) % 16]
+            s0 = _rotr(x1, 7) ^ _rotr(x1, 18) ^ (x1 >> 3)
+            s1 = _rotr(x14, 17) ^ _rotr(x14, 19) ^ (x14 >> 10)
+            ws[i] = ws[i] + s0 + ws[(i + 9) % 16] + s1
+        return tuple(ws)
+
+    def block(j, carry):
+        st, ws = carry
+        ws = next_schedule(ws)
+        ks = jax.lax.dynamic_slice(kvec, (16 * j,), (16,))
+        return rounds16(st, ws, [ks[i] for i in range(16)]), ws
+
+    st = rounds16(tuple(st0[i] for i in range(8)), w,
+                  [kvec[i] for i in range(16)])
+    st, _ = jax.lax.fori_loop(1, 4, block, (st, w))
+    return jnp.stack(st) + st0
 
 
 IV_INTS = [int(v) for v in IV]

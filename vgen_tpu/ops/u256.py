@@ -1,9 +1,9 @@
 """256-bit unsigned integer arithmetic on 16-bit limbs in uint32 lanes.
 
-TPU-native replacement for the reference's 8x u32-limb WGSL arithmetic
+Replacement for the reference's 8x u32-limb WGSL arithmetic
 (shaders/field.wgsl:9-210).  The reference splits 32x32 multiplies into
-16-bit halves by hand (field.wgsl:110-125, `mul32`); on TPU we instead keep
-limbs at 16 bits so every partial product fits a native uint32 multiply and
+16-bit halves by hand (field.wgsl:110-125, `mul32`); here limbs stay at 16
+bits so every partial product fits a native uint32 multiply and
 column sums stay below 2^22 -- no mulhi emulation, no per-element branches,
 carry chains are short unrolled loops vectorized across the batch (lane)
 dimension.
@@ -14,7 +14,6 @@ limb < 2^16 at function boundaries ("normalized").
 
 from __future__ import annotations
 
-from functools import lru_cache
 from typing import List, Sequence, Tuple, Union
 
 import jax
@@ -59,15 +58,14 @@ def to_int(limbs) -> Union[int, List[int]]:
 
 
 # ---------------------------------------------------------------------------
-# Core limb primitives (jnp; trace inside jit and Pallas alike)
+# Core limb primitives (jnp, traced inside jit)
 # ---------------------------------------------------------------------------
 
 def constant(value: int, batch_shape: Tuple[int, ...] = (), nlimbs: int = NLIMBS):
     """Broadcast a Python int to a (nlimbs, *batch_shape) device constant.
 
-    Built from scalar fills (not a materialized array literal) so the same
-    code traces inside Pallas kernels, which reject captured constant
-    arrays; XLA constant-folds it either way."""
+    Built from scalar fills (not a materialized array literal); XLA
+    constant-folds it."""
     rows = [
         jnp.full(batch_shape, (int(value) >> (LIMB_BITS * i)) & 0xFFFF, dtype=U32)
         for i in range(nlimbs)
@@ -76,18 +74,14 @@ def constant(value: int, batch_shape: Tuple[int, ...] = (), nlimbs: int = NLIMBS
 
 
 def u32_to_f32(x):
-    """Exact uint32 -> float32 for values < 2^24 (Mosaic has no direct
-    uint32->f32 cast; bitcast through int32, whose f32 cast is supported)."""
+    """Exact uint32 -> float32 for values < 2^24 (bitcast through int32,
+    whose f32 cast is exact in that range)."""
     return jax.lax.bitcast_convert_type(x, jnp.int32).astype(jnp.float32)
 
 
 def f32_to_u32(x):
     """Exact float32 -> uint32 for non-negative values < 2^31."""
     return jax.lax.bitcast_convert_type(x.astype(jnp.int32), jnp.uint32)
-
-
-def bool_to_f32(x):
-    return jnp.where(x, jnp.float32(1.0), jnp.float32(0.0))
 
 
 def carry_propagate(cols: List, n_out: int):
@@ -156,22 +150,12 @@ def select(mask, a, b):
     return jnp.where(mask[None, ...], a, b)
 
 
-@lru_cache(maxsize=1)
 def _exact_f32_dots() -> bool:
-    """True when the default backend's f32 matmul is exact f32 (CPU); TPU
-    f32 dots are single-pass bf16 and need byte-plane splitting.  Override
-    with VGEN_TPU_SPLIT_DOTS=0/1."""
-    import os
+    """Whether mul_cols may use its f32-dot form (scan.route decides per
+    platform: exact f32 dots on the cpu only)."""
+    from vgen_tpu.scan import route
 
-    env = os.environ.get("VGEN_TPU_SPLIT_DOTS")
-    if env is not None:
-        return env == "0"
-    import jax
-
-    try:
-        return jax.default_backend() == "cpu"
-    except Exception:  # pragma: no cover
-        return False
+    return route.exact_f32_dots(jax.default_backend())
 
 
 def _antidiag_matrices(n: int):
@@ -180,13 +164,11 @@ def _antidiag_matrices(n: int):
 
     S0[k, i*n+j] = [i+j == k]; S1 shifts by one (the high halves).  f32 is
     exact here: entries are 16-bit halves (< 2^16) and each column sum has
-    at most 2n terms, so sums stay < 2^21 << 2^24 mantissa.  On TPU the
-    matmul rides the MXU; as HLO it is 2 dots instead of 2n^2 scalar-row
-    adds (compile time) -- the key trick that makes 256-bit multiplication
-    both fast and compiler-friendly.
+    at most 2n terms, so sums stay < 2^21 << 2^24 mantissa.  As HLO it is 2
+    dots instead of 2n^2 scalar-row adds, which keeps XLA:CPU compiles
+    small.  Not exact under TF32 (scan.route.exact_f32_dots).
 
-    Built from iotas (XLA constant-folds; Pallas kernels may not capture
-    array literals)."""
+    Built from iotas (XLA constant-folds)."""
     rows = jax.lax.broadcasted_iota(jnp.int32, (2 * n, n * n), 0)
     cols = jax.lax.broadcasted_iota(jnp.int32, (2 * n, n * n), 1)
     ij = cols // n + cols % n
@@ -218,16 +200,12 @@ def mul_cols(a, b):
             + jnp.dot(S1, u32_to_f32(hi).reshape(n * n, -1),
                       preferred_element_type=jnp.float32)
         ).reshape((2 * n,) + batch_shape)
-    # TPU f32 matmuls are single-pass bf16 (XLA DEFAULT precision and
-    # Mosaic's jnp.dot alike): only integers <= 256 survive exactly, so a
-    # dot formulation needs FOUR byte planes -- 4x (256, W) f32 of HBM
-    # traffic per multiply, which makes the whole inversion stage
-    # bandwidth-bound.  Instead: limb-row schoolbook, exact in u32 by
-    # construction -- 16 iterations of whole-(16,*B)-array multiply/mask/
-    # shift-add, accumulated into 32 columns via statically shifted
-    # concatenations.  ~100 traced ops per multiply (a fully scalar-row
-    # unroll at ~770 ops/mul makes large jitted modules big enough to OOM
-    # the TPU compiler), all VPU, no HBM-streamed matmul planes.
+    # gpu: limb-row schoolbook, exact in u32 by construction.  Its f32 dots
+    # run in TF32 (11-bit significand) and would round the 16-bit halves;
+    # precision=HIGHEST would be exact but moves a (256, B) f32 plane per
+    # multiply through memory.  Here: 16 iterations of whole-(16,*B)-array
+    # multiply/mask/shift-add, accumulated into 32 columns via statically
+    # shifted concatenations -- ~100 traced elementwise ops per multiply.
     batch = tuple(a.shape[1:])
     zrow = jnp.zeros((1,) + batch, dtype=jnp.uint32)
 
@@ -283,8 +261,7 @@ def square_wide(a):
 
 
 def mul_wide_unrolled(a, b):
-    """Pad/add formulation of mul_wide for contexts where matmul is not
-    available or not profitable (e.g. small-tile Pallas bodies)."""
+    """Pad/add formulation of mul_wide (no matmul)."""
     n = a.shape[0]
     p = a[:, None] * b[None, :]
     lo = p & LIMB_MASK

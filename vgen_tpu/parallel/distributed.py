@@ -1,25 +1,21 @@
-"""Multi-host distribution: jax.distributed bootstrap for pod-scale scans.
+"""Multi-host distribution: jax.distributed bootstrap for multi-host scans.
 
 The reference has no multi-node/multi-device distribution at all (single
-process, single wgpu queue -- SURVEY.md §2.3); this module is the TPU-native
-replacement the survey calls for: `jax.distributed.initialize` + a
-process-spanning `jax.sharding.Mesh`, with XLA collectives riding ICI
-intra-slice and DCN across hosts.
+process, single wgpu queue -- SURVEY.md §2.3); this module adds
+`jax.distributed.initialize` + a process-spanning `jax.sharding.Mesh`, with
+XLA collectives over NCCL (NVLink within a host, the network across hosts).
 
-Usage -- run ONE process per host, each seeing its local chips:
+Usage -- run ONE process per host, each seeing its local gpus:
 
-    # TPU pod slice (GKE/GCE TPU VMs): cluster env is auto-detected
-    vgen-tpu generate -p '^1Cat' ...
-
-    # explicit bootstrap (any cluster):
     VGEN_COORDINATOR=host0:8476 VGEN_NUM_PROCESSES=2 VGEN_PROCESS_ID=0 \
         vgen-tpu generate -p '^1Cat' ...
 
-After initialization `jax.devices()` spans every chip of every host;
-parallel.mesh.MeshScanner shards the key space over that global device list,
-psum-reduces counts over the mesh, and all-gathers the per-device match
-indices so every host re-derives (and can report) every match.  Checkpoint
-files are written by process 0 only.
+(or JAX's own JAX_COORDINATOR_ADDRESS with its process-count variables).
+After initialization `jax.devices()` spans every device of every host;
+parallel.mesh.MeshScanner shards the key space over that global device
+list and all-gathers the packed per-device results so every host
+re-derives (and can report) every match.  Checkpoint files are written by
+process 0 only.
 """
 
 from __future__ import annotations
@@ -29,15 +25,9 @@ from typing import Optional
 
 _INITIALIZED = False
 
-# env vars that indicate jax.distributed.initialize() can auto-detect the
-# cluster (TPU pod runtime / GKE / Cloud TPU environments)
-_AUTO_ENV_HINTS = (
-    "TPU_WORKER_HOSTNAMES",
-    "TPU_WORKER_ID",
-    "MEGASCALE_COORDINATOR_ADDRESS",
-    "CLOUD_TPU_TASK_ID",
-    "JAX_COORDINATOR_ADDRESS",
-)
+# env var that lets jax.distributed.initialize() find its coordinator on
+# its own
+_AUTO_ENV_HINTS = ("JAX_COORDINATOR_ADDRESS",)
 
 
 def initialize(
@@ -49,12 +39,12 @@ def initialize(
     """Initialize jax.distributed for multi-host scanning.
 
     Explicit args (or VGEN_COORDINATOR / VGEN_NUM_PROCESSES /
-    VGEN_PROCESS_ID env vars) bootstrap any cluster; with no args the
-    TPU pod cluster environment is auto-detected when present.  Safe to
-    call repeatedly.  Returns True iff more than one process participates.
+    VGEN_PROCESS_ID env vars) bootstrap any cluster; with no args,
+    JAX_COORDINATOR_ADDRESS lets JAX bootstrap itself.  Safe to call
+    repeatedly.  Returns True iff more than one process participates.
 
     MUST run before the first JAX backend touch (the CLI calls it from
-    resolve_use_device, ahead of the device probe).
+    resolve_use_device, ahead of jax.devices()).
     """
     global _INITIALIZED
     import jax
@@ -63,13 +53,10 @@ def initialize(
         return jax.process_count() > 1
 
     # CPU clusters need a cross-process collectives backend; the flag is a
-    # no-op for TPU backends, and must be set before the backend initializes
+    # no-op for gpu backends, and must be set before the backend initializes
     # (verified: 2-process x 4-virtual-device CPU mesh psum over gloo,
     # tests/test_distributed.py)
-    try:
-        jax.config.update("jax_cpu_collectives_implementation", "gloo")
-    except Exception:  # pragma: no cover - older/newer jax without the flag
-        pass
+    jax.config.update("jax_cpu_collectives_implementation", "gloo")
 
     coordinator_address = coordinator_address or os.environ.get(
         "VGEN_COORDINATOR"

@@ -1,7 +1,7 @@
 """Ahead-of-time regex -> DFA compiler for on-device matching.
 
 The reference matches addresses with the `regex` crate on the CPU per
-candidate (pattern.rs:43-45, gpu.rs:1069).  The TPU build instead compiles
+candidate (pattern.rs:43-45, gpu.rs:1069).  This build instead compiles
 the pattern ONCE into a dense DFA transition table that the device applies
 byte-parallel over encoded address strings (SURVEY.md §7 layer 5).
 

@@ -64,6 +64,10 @@ def run_tui(pattern, config, stop_flag):
         ),
         device_enabled=config.use_device,
     )
+    if config.use_device:
+        import jax
+
+        state.device_name = jax.devices()[0].device_kind
     lock = threading.Lock()
     result_holder = {}
     t0 = time.time()
@@ -135,7 +139,7 @@ def run_tui(pattern, config, stop_flag):
                 0, 13,
                 f"Pattern: {state.pattern}  │  Format: {state.format}  │  "
                 f"Difficulty: 1 in {format_with_commas(state.difficulty)}  │  "
-                + ("TPU ACCELERATED" if state.device_enabled else "CPU"),
+                + (state.device_name if state.device_enabled else "CPU"),
                 curses.color_pair(4),
             )
             put(2, 2, f"Status:   {snap_status}", curses.A_BOLD)
