@@ -328,7 +328,7 @@ def main(argv=None) -> int:
             phase_rates(card)
         else:
             phase_mesh(pool, args.chips)
-    log(f"card: {card}")
+    log(card)  # as nvidia-smi prints it: name, power limit
     log(f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"ok": True, "device": {
         "platform": devices[0].platform,
