@@ -7,10 +7,10 @@ calls, at the CLI's default width (524,288 keys per window).
 Phases (one card):
   1. device: the card's name and power limit, the JAX devices, the compile
      cache directory, whether the native re-derivation library loaded.
-  2. oracle: for 6 formats x {interval path, DFA path}, one window's full
-     device match mask against the host's independent re-derivation
-     (vgen_tpu.scan.oracle), exact, over every reported index and the first
-     65,536 keys.
+  2. oracle: for 6 formats x {interval path, DFA path}, one dispatch's
+     device match masks (8 windows) against the host's independent
+     re-derivation (vgen_tpu.scan.oracle), exact, over every index reported
+     in any window and the first 65,536 keys of the first and last window.
   3. end to end through the CLI (run_from_args): `generate -c 2` for each
      format, every printed key re-derived by the pure-Python oracle; and a
      puzzle `range` with a checkpoint, which must print the published key.
@@ -266,13 +266,15 @@ def phase_mesh(pool: ThreadPoolExecutor, n_chips: int) -> None:
         return ScanConfig(format=AddressFormat.P2PKH, count=count,
                           start=start, end=end, device_batch_size=BATCH)
 
-    # compile the three steps concurrently on short scans
+    # compile the three steps concurrently on short scans, each of which
+    # must dispatch (an empty range would leave the compile to the timed run)
     t0 = time.perf_counter()
     for j in [pool.submit(mesh.scan, pat, 0, lo, lo + 1),
               pool.submit(single.scan, pat, cfg(lo, lo + 1, 0)),
               pool.submit(mesh_gen.scan, gen_pat, 1, None, None, None, None,
                           1)]:
-        j.result()
+        require(j.result().operations > 0,
+                "mesh phase: a warm-up scan dispatched nothing")
     log(f"[m] compiled mesh and single-card steps in "
         f"{time.perf_counter() - t0:.1f}s")
 

@@ -9,11 +9,11 @@ the given batch, reports ``compiled.memory_analysis()`` and
 and the kernels that take the most device time.
 
     python scripts/profile_step.py \\
-        --runs p2pkh-range-glv:0:64,p2pkh-dfa-glv:0:64 \\
-        --parallel-runs p2pkh-range:0:64,p2pkh-range:0:256 \\
+        --runs p2pkh-range-glv:64,p2pkh-dfa-glv:64 \\
+        --parallel-runs p2pkh-range:64,p2pkh-range:256 \\
         --trace --out profile_census
 
-A run is case:unroll:chain.  --runs compile one after another;
+A run is case:chain (the inversion chain length).  --runs compile one after another;
 --parallel-runs compile together on a thread pool (XLA compiles outside
 the interpreter lock), each timed as soon as it is compiled.  Prints one
 JSON object per run on stdout; with --out, each trace's full census is
@@ -60,6 +60,19 @@ def card() -> str:
         return f"nvidia-smi unavailable ({e})"
 
 
+def _busy_ns(spans) -> float:
+    """Length of the union of (start, end) spans."""
+    busy, end = 0.0, None
+    for s, t in sorted(spans):
+        if end is None or s > end:
+            busy += t - s
+            end = t
+        elif t > end:
+            busy += t - end
+            end = t
+    return busy
+
+
 def trace_census(trace_dir: str, n_steps: int) -> dict:
     """Device kernels per step and the heaviest kernels, from the xplane."""
     import jax
@@ -72,6 +85,7 @@ def trace_census(trace_dir: str, n_steps: int) -> dict:
     lines = {}
     per_kernel = {}
     spans = []
+    by_plane = {}
     for plane in pd.planes:
         if not plane.name.startswith("/device:GPU"):
             continue
@@ -85,15 +99,7 @@ def trace_census(trace_dir: str, n_steps: int) -> dict:
                 k[0] += 1
                 k[1] += e.duration_ns
                 spans.append((e.start_ns, e.start_ns + e.duration_ns))
-    busy = 0.0
-    end = None
-    for s, t in sorted(spans):
-        if end is None or s > end:
-            busy += t - s
-            end = t
-        elif t > end:
-            busy += t - end
-            end = t
+                by_plane.setdefault(plane.name, []).append(spans[-1])
     window = (max(t for _, t in spans) - min(s for s, _ in spans)
               if spans else 0.0)
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:15]
@@ -101,7 +107,11 @@ def trace_census(trace_dir: str, n_steps: int) -> dict:
         "lines": lines,
         "kernels_per_step": sum(c for c, _ in per_kernel.values()) / n_steps,
         "distinct_kernels": len(per_kernel),
-        "device_busy_ms_per_step": busy / n_steps / 1e6,
+        "device_busy_ms_per_step": _busy_ns(spans) / n_steps / 1e6,
+        "busy_ms_per_step_by_device": {
+            name: _busy_ns(sp) / n_steps / 1e6
+            for name, sp in sorted(by_plane.items())
+        },
         "kernel_window_ms": window / 1e6,
         "top": [
             {"name": n[:120], "calls": c, "ms_per_step": d / n_steps / 1e6}
@@ -112,8 +122,8 @@ def trace_census(trace_dir: str, n_steps: int) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--runs", default="p2pkh-range-glv:0:64,"
-                    "p2pkh-dfa-glv:0:64,p2tr-range:0:64")
+    ap.add_argument("--runs", default="p2pkh-range-glv:64,"
+                    "p2pkh-dfa-glv:64,p2tr-range:64")
     ap.add_argument("--parallel-runs", default="")
     ap.add_argument("--batch", type=int, default=524_288)
     ap.add_argument("--k-sub", type=int, default=8)
@@ -151,32 +161,20 @@ def main(argv=None) -> int:
     rem = jnp.full((K,), B, dtype=jnp.int32)
 
     def prepare(spec):
-        name, unroll, chain = spec.split(":")
-        unroll, chain = bool(int(unroll)), int(chain)
+        name, chain = spec.split(":")
+        chain = int(chain)
         fmt_s, pat_s = CASES[name]
         fmt = AddressFormat.from_str(fmt_s)
         pat = Pattern(pat_s)
         is_range = name == "p2pkh-range"
         ivs = route.plan_intervals(pat, fmt, B, is_range)
         r = route.route(dev.platform, fmt, ivs, is_range, K)
-        if r.kind == "range":
-            lo, hi = pipeline.intervals_to_words(
-                ivs, pipeline.INTERVAL_WORDS[fmt],
-                n_slots=pipeline.interval_slot_count(len(ivs)),
-            )
-            margs = (jnp.asarray(lo), jnp.asarray(hi))
-        else:
-            dfa = pat.device_dfa(fmt)
-            flat, accept = pipeline.pad_device_dfa(dfa)
-            margs = (jnp.asarray(flat), jnp.asarray(accept),
-                     jnp.int32(dfa.start))
+        margs = pipeline.matcher_args(pat, fmt, ivs)
         extras = (wt,) if fmt == AddressFormat.P2TR else ()
-        step = pipeline.packed_xla_scan_step(
-            fmt, r.kind, r.glv, chain, K, unroll
-        )
+        step = pipeline.packed_xla_scan_step(fmt, r.kind, r.glv, chain, K)
         call = (bx, by, tx, ty, rem) + margs + extras
         rec = {"case": name, "kind": r.kind, "glv": r.glv,
-               "unroll": unroll, "chain": chain, "batch": B, "k_sub": K}
+               "chain": chain, "batch": B, "k_sub": K}
         return rec, step, call
 
     def compile_one(item):
@@ -222,7 +220,7 @@ def main(argv=None) -> int:
         rec["window_keys_per_s"] = keys / med
         rec["ops_per_s"] = keys * (6 if rec["glv"] else 1) / med
         if args.trace:
-            name = "{case}-u{u}-c{chain}".format(u=int(rec["unroll"]), **rec)
+            name = "{case}-c{chain}".format(**rec)
             with tempfile.TemporaryDirectory() as tdir:
                 with jax.profiler.trace(tdir):
                     for _ in range(2):

@@ -37,6 +37,33 @@ def test_device_mask_matches_host(runner, fmt, pattern):
     assert res.n_host > 0 and res.n_device > 0
 
 
+@pytest.mark.parametrize(
+    "fmt,pattern",
+    [
+        (F.P2PKH, "^1[A-Za-z]"),  # GLV interval
+        (F.P2WPKH, "[ac]$"),  # GLV DFA
+        (F.P2TR, "^bc1p[qpzry9x8]"),  # no GLV
+    ],
+    ids=["p2pkh-glv", "p2wpkh-dfa-glv", "p2tr"],
+)
+def test_two_windows_per_dispatch_match_host(fmt, pattern):
+    """k_sub=2, as the gpu batches its windows: every window of the
+    dispatch is laid out against its own base point (a layout fault in
+    window 1 would report matches at keys the host does not derive)."""
+    two = oracle.WindowRunner(64, 16, k_sub=2)
+    res = oracle.check_window(two, fmt, pattern, BASE, 64)
+    assert res.ok, res.mismatches[:5]
+    assert res.n_windows == 2
+    assert res.n_checked == 2 * 64
+    _, masks = two.mask(fmt, Pattern(pattern), BASE)
+    masks = np.asarray(masks)
+    assert masks.shape == (2, 64) and masks[1].any()
+    # window 1 is the next window of the key space, not a copy of window 0
+    one = oracle.WindowRunner(64, 16, k_sub=1)
+    _, m1 = one.mask(fmt, Pattern(pattern), BASE + 64)
+    np.testing.assert_array_equal(masks[1], np.asarray(m1)[0])
+
+
 def test_expected_bits_plain_keys():
     fmt, pat = F.P2PKH, Pattern("^1[A-H]")
     keys = [BASE + i for i in range(40)]
@@ -78,7 +105,7 @@ class _FakeRunner:
     def mask(self, fmt, pattern, base):
         import jax.numpy as jnp
 
-        return Route("range", False, 1, False), jnp.asarray(self._mask)
+        return Route("range", False, 1), jnp.asarray(self._mask)[None]
 
 
 def test_check_window_reports_a_flipped_bit():

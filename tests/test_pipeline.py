@@ -42,9 +42,10 @@ def run_step(fmt, pattern, base_k, remaining=B, ignore_case=False):
     flat, accept = pipeline.pad_device_dfa(dev)
     bx, by, tx, ty = make_table(base_k)
     extras = (window_tbl(),) if fmt == AddressFormat.P2TR else ()
-    res = pipeline.run_scan_step(
-        fmt, bx, by, tx, ty, jnp.asarray(flat), jnp.asarray(accept),
-        dev.start, remaining, extras=extras, chain_len=CHAIN,
+    res, _ = pipeline.run_window(
+        fmt, "dfa", bx, by, tx, ty, remaining,
+        (jnp.asarray(flat), jnp.asarray(accept), jnp.int32(dev.start)),
+        extras, chain_len=CHAIN,
     )
     return pat, res
 

@@ -1,4 +1,4 @@
-"""XLA interval tail (ops/pipeline.make_range_tail) vs the host oracle.
+"""XLA interval tail (ops/pipeline.make_range_mask) vs the host oracle.
 
 Covers every format (including P2TR's on-device TapTweak and Ethereum's
 keccak path) and the GLV 6-variant expansion.  On the gpu the same helpers
@@ -34,9 +34,9 @@ def _run(fmt, pattern_str, glv=False):
     extras = ()
     if fmt == AddressFormat.P2TR:
         extras = (jnp.asarray(tables.window_table_u32(8)),)
-    res = pipeline.run_range_scan_step(
-        fmt, bx, by, jnp.asarray(tx), jnp.asarray(ty), lo, hi, B,
-        extras=extras, chain_len=CHAIN, glv=glv,
+    res, _ = pipeline.run_window(
+        fmt, "range", bx, by, jnp.asarray(tx), jnp.asarray(ty), B,
+        (jnp.asarray(lo), jnp.asarray(hi)), extras, chain_len=CHAIN, glv=glv,
     )
     got = sorted(int(i) for i in np.asarray(res.indices) if i >= 0)
     return pat, got, int(res.count), int(res.ops)
@@ -111,9 +111,9 @@ def test_range_tail_glv_exact_y_vbits(fmt, pattern):
     pat = Pattern(pattern)
     ivs = pat.match_intervals(fmt)
     lo, hi = pipeline.intervals_to_words(ivs, pipeline.INTERVAL_WORDS[fmt])
-    res = pipeline.run_range_scan_step(
-        fmt, bx, by, jnp.asarray(tx), jnp.asarray(ty), lo, hi, B,
-        chain_len=CHAIN, glv=True,
+    res, _ = pipeline.run_window(
+        fmt, "range", bx, by, jnp.asarray(tx), jnp.asarray(ty), B,
+        (jnp.asarray(lo), jnp.asarray(hi)), chain_len=CHAIN, glv=True,
     )
     gen = AddressGenerator(fmt)
     pairs = {
@@ -148,10 +148,10 @@ def _run_dfa(fmt, pattern_str, glv=False):
     extras = ()
     if fmt == AddressFormat.P2TR:
         extras = (jnp.asarray(tables.window_table_u32(8)),)
-    res = pipeline.run_scan_step(
-        fmt, bx, by, jnp.asarray(tx), jnp.asarray(ty),
-        jnp.asarray(flat), jnp.asarray(accept), dev.start, B,
-        extras=extras, chain_len=CHAIN, glv=glv,
+    res, _ = pipeline.run_window(
+        fmt, "dfa", bx, by, jnp.asarray(tx), jnp.asarray(ty), B,
+        (jnp.asarray(flat), jnp.asarray(accept), jnp.int32(dev.start)),
+        extras, chain_len=CHAIN, glv=glv,
     )
     got = sorted(int(i) for i in np.asarray(res.indices) if i >= 0)
     return pat, got, int(res.count), int(res.ops)

@@ -1,5 +1,6 @@
 """scan.route: one route per platform, and the compile-cache location."""
 
+import dataclasses
 import os
 import pkgutil
 import subprocess
@@ -43,7 +44,8 @@ def test_route_per_platform(fmt, shape, platform):
         # range scans must report keys inside the range
         assert r.glv == (not is_range and fmt in pipeline.GLV_FORMATS)
         assert r.k_sub == (route.GPU_K_SUB if platform == "gpu" else 1)
-        assert r.unroll is False
+        assert [f.name for f in dataclasses.fields(r)] == [
+            "kind", "glv", "k_sub"]
         assert "pallas" not in repr(r).lower()
         assert "fused" not in repr(r).lower()
 

@@ -163,7 +163,8 @@ def test_device_error_mid_scan_propagates(monkeypatch):
     def broken(*a, **kw):
         raise RuntimeError("XLA execution failed")
 
-    monkeypatch.setattr(pipeline, "run_range_scan_step", broken)
+    monkeypatch.setattr(pipeline, "packed_xla_scan_step",
+                        lambda *a: broken)
     monkeypatch.setattr(sc, "_scanner_cache", {})
     with pytest.raises(RuntimeError, match="XLA execution failed"):
         sc.scan_with_progress(

@@ -2,7 +2,7 @@
 
 The hash/encode/interval code is shape-polymorphic over the batch dims; the
 same jnp code must produce the same results over (V, T) 2D batches as over
-flat (B,) ones (tiny batches keep the unrolled XLA:CPU compiles fast).
+flat (B,) ones (tiny batches keep the XLA:CPU compiles fast).
 """
 
 import numpy as np
@@ -32,11 +32,9 @@ def test_symbols_p2pkh_word_path_vtile():
     from vgen_tpu.ops import pipeline
 
     x, y = _limbs(), _limbs()
-    sf, lf = pipeline.symbols_p2pkh(jnp.asarray(x), jnp.asarray(y),
-                                    unroll=True)
+    sf, lf = pipeline.symbols_p2pkh(jnp.asarray(x), jnp.asarray(y))
     st, lt = pipeline.symbols_p2pkh(
         jnp.asarray(x.reshape(16, V, T)), jnp.asarray(y.reshape(16, V, T)),
-        unroll=True,
     )
     _cmp(sf, st)
     _cmp(lf, lt)
@@ -52,11 +50,11 @@ def test_glv_interval_mask_vtile():
     hi[0] = [1 << 28, 0xFFFFFFFF, 0xFFFFFFFF, 0xFFFFFFFF, 0xFFFFFFFF]
     mf = pipeline.glv_interval_mask(
         AddressFormat.P2PKH, jnp.asarray(x), None, jnp.asarray(lo),
-        jnp.asarray(hi), unroll=True,
+        jnp.asarray(hi),
     )
     mt = pipeline.glv_interval_mask(
         AddressFormat.P2PKH, jnp.asarray(x.reshape(16, V, T)), None,
-        jnp.asarray(lo), jnp.asarray(hi), unroll=True,
+        jnp.asarray(lo), jnp.asarray(hi),
     )
     _cmp(mf, mt)
 
@@ -65,11 +63,9 @@ def test_eth_symbols_vtile():
     from vgen_tpu.ops import pipeline
 
     x, y = _limbs(), _limbs()
-    sf, lf = pipeline.symbols_ethereum(jnp.asarray(x), jnp.asarray(y),
-                                       unroll=True)
+    sf, lf = pipeline.symbols_ethereum(jnp.asarray(x), jnp.asarray(y))
     st, lt = pipeline.symbols_ethereum(
         jnp.asarray(x.reshape(16, V, T)), jnp.asarray(y.reshape(16, V, T)),
-        unroll=True,
     )
     _cmp(sf, st)
     _cmp(lf, lt)
@@ -80,10 +76,9 @@ def test_tagged_hash_vtile():
 
     x = _limbs()
     mid = sha256.tagged_midstate("TapTweak")
-    hf = sha256.tagged_hash_32(mid, u256.to_bytes_be(jnp.asarray(x)),
-                               unroll=True)
+    hf = sha256.tagged_hash_32(mid, u256.to_bytes_be(jnp.asarray(x)))
     ht = sha256.tagged_hash_32(
-        mid, u256.to_bytes_be(jnp.asarray(x.reshape(16, V, T))), unroll=True
+        mid, u256.to_bytes_be(jnp.asarray(x.reshape(16, V, T)))
     )
     _cmp(hf, ht)
 

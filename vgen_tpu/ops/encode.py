@@ -68,7 +68,7 @@ def _pow256_base58_matrix() -> np.ndarray:
 _POW256_B58 = _pow256_base58_matrix()
 
 
-def base58check_symbols(payload21, basis=None, unroll: bool = False):
+def base58check_symbols(payload21, basis=None):
     """Base58Check of version||hash160: (21, *B) bytes -> (symbols(34), length).
 
     Appends the 4-byte double-SHA checksum on device, converts the 25-byte
@@ -79,7 +79,7 @@ def base58check_symbols(payload21, basis=None, unroll: bool = False):
     (leading-zero-digits - leading-zero-bytes) so the emitted symbol string
     equals the canonical minimal encoding ('1' per leading zero byte).
     """
-    check = dev_sha.double_sha256_bytes(payload21, 21, unroll=unroll)[:4]
+    check = dev_sha.double_sha256_bytes(payload21, 21)[:4]
     payload = jnp.concatenate([payload21, check], axis=0)  # (25, *B)
     return _base58_from_payload25(payload, basis)
 
@@ -223,7 +223,7 @@ def segwit_symbols(program_bytes, witver: int, hrp: str = "bc"):
 # ASCII codes of lowercase hex digits, for feeding the checksum keccak
 
 
-def eth_symbols(addr20, unroll: bool = False):
+def eth_symbols(addr20):
     """EIP-55 checksummed hex symbols for a 20-byte account.
 
     addr20: (20,*B) -> (symbols(40), length=40).  Symbols: 0-9 -> 0..9,
@@ -239,7 +239,7 @@ def eth_symbols(addr20, unroll: bool = False):
     ascii_lower = nib + jnp.uint32(48) + jnp.where(
         nib >= 10, jnp.uint32(39), jnp.uint32(0)
     )
-    digest = dev_keccak.keccak256_bytes(ascii_lower, 40, unroll=unroll)
+    digest = dev_keccak.keccak256_bytes(ascii_lower, 40)
     # checksum nibble per position
     csn = []
     for i in range(20):
@@ -256,101 +256,15 @@ def eth_symbols(addr20, unroll: bool = False):
 
 # --- hash160 convenience ---------------------------------------------------
 
-def hash160_33(pubkey33, unroll: bool = False):
+def hash160_33(pubkey33):
+    return dev_ripemd.ripemd160_digest32(dev_sha.sha256_bytes(pubkey33, 33))
+
+
+def hash160_22(script22):
+    return dev_ripemd.ripemd160_digest32(dev_sha.sha256_bytes(script22, 22))
+
+
+def hash160_65(pubkey65):
     return dev_ripemd.ripemd160_digest32(
-        dev_sha.sha256_bytes(pubkey33, 33, unroll=unroll)
-    )
-
-
-def hash160_22(script22, unroll: bool = False):
-    return dev_ripemd.ripemd160_digest32(
-        dev_sha.sha256_bytes(script22, 22, unroll=unroll)
-    )
-
-
-def hash160_65(pubkey65, unroll: bool = False):
-    return dev_ripemd.ripemd160_digest32(
-        dev_sha.sha256_bytes_2block(pubkey65, 65, unroll=unroll)
-    )
-
-
-def hash160_33_words_from_x(x_limbs, parity):
-    """5 BIG-endian u32 word rows of hash160(parity_byte || x_be32), built
-    straight from (16,*B) 16-bit limbs via the partial-evaluated word path
-    (no byte materialization anywhere).  parity: int 2/3 or traced row.
-
-    Fully-unrolled: the gpu tails (scan.route unroll); the byte-level
-    hash160_33 remains for fori_loop-friendly XLA:CPU paths."""
-    return dev_ripemd.ripemd160_sha_state_words(
-        dev_sha.sha256_x33_state(x_limbs, parity)
-    )
-
-
-def hash160_65_words_from_xy(x_limbs, y_limbs):
-    """5 BE u32 word rows of hash160(0x04 || x_be || y_be) (word path)."""
-    return dev_ripemd.ripemd160_sha_state_words(
-        dev_sha.sha256_x65_state(x_limbs, y_limbs)
-    )
-
-
-def words_to_bytes_be(wlist):
-    """list of W traced u32 word rows -> (4W, *B) big-endian byte rows."""
-    rows = []
-    for w in wlist:
-        rows += [
-            w >> 24,
-            (w >> 16) & jnp.uint32(0xFF),
-            (w >> 8) & jnp.uint32(0xFF),
-            w & jnp.uint32(0xFF),
-        ]
-    return jnp.stack(rows)
-
-
-def base58check_checksum_word(version: int, h160w):
-    """First u32 (big-endian) of SHA256d(version_byte || h160) -- the 4
-    Base58Check checksum bytes -- via the partial-evaluated word path."""
-    from vgen_tpu.ops import bitops as bo
-
-    w = [bo.or2(bo.shl(version, 24), bo.shr(h160w[0], 8))]
-    for i in range(1, 5):
-        w.append(
-            bo.or2(
-                bo.shl(bo.and2(h160w[i - 1], 0xFF), 24),
-                bo.shr(h160w[i], 8),
-            )
-        )
-    w.append(bo.or2(bo.shl(bo.and2(h160w[4], 0xFF), 24), 0x00800000))
-    w += [0, 0, 0, 0, 0, 0, 0, 0, 0, 168]
-    st = dev_sha.compress_pe(dev_sha.IV_INTS, w)
-    w2 = list(st) + [0x80000000, 0, 0, 0, 0, 0, 0, 256]
-    return dev_sha.compress_pe(dev_sha.IV_INTS, w2)[0]
-
-
-def base58check_symbols_words(version: int, h160w, basis=None):
-    """base58check_symbols fed by h160 as 5 BE u32 word rows (word path:
-    checksum double-SHA never touches bytes; only the 25-byte basis-matmul
-    operand is materialized)."""
-    check = base58check_checksum_word(version, h160w)
-    byts = words_to_bytes_be(list(h160w) + [check])  # (24, *B)
-    vrow = jnp.full((1,) + byts.shape[1:], version, dtype=jnp.uint32)
-    return _base58_from_payload25(jnp.concatenate([vrow, byts], axis=0), basis)
-
-
-def script_hash_words(h160w):
-    """5 BE u32 words of hash160(0x00 0x14 || h160) -- the P2SH-P2WPKH
-    redeem-script hash -- from h160 as 5 BE u32 word rows (word path)."""
-    from vgen_tpu.ops import bitops as bo
-
-    w = [bo.or2(0x00140000, bo.shr(h160w[0], 16))]
-    for i in range(1, 5):
-        w.append(
-            bo.or2(
-                bo.shl(bo.and2(h160w[i - 1], 0xFFFF), 16),
-                bo.shr(h160w[i], 16),
-            )
-        )
-    w.append(bo.or2(bo.shl(bo.and2(h160w[4], 0xFFFF), 16), 0x8000))
-    w += [0, 0, 0, 0, 0, 0, 0, 0, 0, 176]
-    return dev_ripemd.ripemd160_sha_state_words(
-        dev_sha.compress_pe(dev_sha.IV_INTS, w)
+        dev_sha.sha256_bytes_2block(pubkey65, 65)
     )

@@ -7,8 +7,7 @@ fit a single 136-byte-rate block, so absorption is constant-shaped.
 
 State: two (25, *B) uint32 arrays (hi, lo), lane index x + 5*y.  Rotations
 are static per lane, so the round body unrolls with shifts only.  The 24
-rounds run under fori_loop by default (fast XLA compiles); unroll=True
-emits static rounds with scalar iota constants (scan.route's word path).
+rounds run under fori_loop (24x less graph to compile).
 """
 
 from __future__ import annotations
@@ -67,16 +66,11 @@ def _rotl64(hi, lo, n: int):
     return nh, nl
 
 
-def keccak_f1600(hi, lo, unroll: bool = False):
-    """Permutation on (25, *B) hi/lo uint32 arrays.
-
-    unroll=False (jit/XLA): 24 rounds under fori_loop with the round
-    constants indexed per iteration -- compiles ~24x less graph.
-    unroll=True: static rounds with scalar iota constants."""
-
-    if not unroll:
-        rc_hi = jnp.asarray(_RC_HI)
-        rc_lo = jnp.asarray(_RC_LO)
+def keccak_f1600(hi, lo):
+    """Permutation on (25, *B) hi/lo uint32 arrays: 24 rounds under
+    fori_loop with the round constants indexed per iteration."""
+    rc_hi = jnp.asarray(_RC_HI)
+    rc_lo = jnp.asarray(_RC_LO)
 
     def round_body(r, carry):
         hi, lo = carry
@@ -107,61 +101,14 @@ def keccak_f1600(hi, lo, unroll: bool = False):
                 nhi.append(bhi[i0] ^ (~bhi[i1] & bhi[i2]))
                 nlo.append(blo[i0] ^ (~blo[i1] & blo[i2]))
         # iota
-        if unroll:
-            nhi[0] = nhi[0] ^ jnp.uint32(int(_RC_HI[r]))
-            nlo[0] = nlo[0] ^ jnp.uint32(int(_RC_LO[r]))
-        else:
-            nhi[0] = nhi[0] ^ rc_hi[r]
-            nlo[0] = nlo[0] ^ rc_lo[r]
+        nhi[0] = nhi[0] ^ rc_hi[r]
+        nlo[0] = nlo[0] ^ rc_lo[r]
         return jnp.stack(nhi), jnp.stack(nlo)
 
-    if unroll:
-        for r in range(24):
-            hi, lo = round_body(r, (hi, lo))
-        return hi, lo
     return jax.lax.fori_loop(0, 24, round_body, (hi, lo))
 
 
-def eth_account_words_from_xy(x_limbs, y_limbs, unroll: bool = False):
-    """5 BIG-endian u32 word rows of keccak256(x_be||y_be)[12:32] -- the
-    Ethereum account -- with lanes built straight from (16,*B) 16-bit limbs
-    and account words read straight from output lanes (no byte rows).
-
-    The 64-byte message fills lanes 0..7; lane 8 carries the 0x01 pad and
-    lane 16 the 0x80 rate-end pad (keccak256_bytes layout, specialized)."""
-    from vgen_tpu.ops import bitops as bo
-
-    B = x_limbs.shape[1:]
-    zero = jnp.zeros(B, dtype=U32)
-
-    def lanes_from(limbs):
-        # lane j (j=0..3 for one 32-byte BE value): lo32 = bytes 8j..8j+3 LE
-        his, los = [], []
-        for j in range(4):
-            lo = bo.or2(
-                bo.bswap16(limbs[15 - 4 * j]),
-                bo.shl(bo.bswap16(limbs[14 - 4 * j]), 16),
-            )
-            hi = bo.or2(
-                bo.bswap16(limbs[13 - 4 * j]),
-                bo.shl(bo.bswap16(limbs[12 - 4 * j]), 16),
-            )
-            los.append(lo)
-            his.append(hi)
-        return his, los
-
-    xh, xl = lanes_from(x_limbs)
-    yh, yl = lanes_from(y_limbs)
-    lo = xl + yl + [jnp.full(B, 0x01, dtype=U32)] + [zero] * 16
-    hi = xh + yh + [zero] * 8 + [jnp.full(B, 0x80000000, dtype=U32)] + (
-        [zero] * 8
-    )
-    hi, lo = keccak_f1600(jnp.stack(hi), jnp.stack(lo), unroll=unroll)
-    # account bytes 12..31 = lane1.hi, lane2.lo, lane2.hi, lane3.lo, lane3.hi
-    return [bo.bswap32(w) for w in (hi[1], lo[2], hi[2], lo[3], hi[3])]
-
-
-def keccak256_bytes(data, msg_len: int, unroll: bool = False):
+def keccak256_bytes(data, msg_len: int):
     """Keccak-256 of fixed-length messages (<= 135 bytes, single block).
 
     data: (msg_len, *B) byte values -> (32, *B) digest bytes."""
@@ -191,7 +138,7 @@ def keccak256_bytes(data, msg_len: int, unroll: bool = False):
                     h = h | (byte << (8 * (b - 4)))
         hi.append(h)
         lo.append(l)
-    hi, lo = keccak_f1600(jnp.stack(hi), jnp.stack(lo), unroll=unroll)
+    hi, lo = keccak_f1600(jnp.stack(hi), jnp.stack(lo))
     out = []
     for lane in range(4):
         for b in range(8):

@@ -14,7 +14,7 @@ Formats (parity: reference AddressFormat, address.rs:11-24):
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
@@ -73,78 +73,44 @@ def _base58_payload(version: int, h160):
     return jnp.concatenate([v, h160], axis=0)
 
 
-def _h160_words_33(x, y):
-    """hash160 of the compressed pubkey as 5 BE u32 word rows (word path)."""
-    parity = 2 + (y[0] & jnp.uint32(1))
-    return encode.hash160_33_words_from_x(x, parity)
+def symbols_p2pkh(x, y, b58_basis=None):
+    h160 = encode.hash160_33(compressed_pubkey_bytes(x, y))
+    return encode.base58check_symbols(_base58_payload(0, h160), b58_basis)
 
 
-def symbols_p2pkh(x, y, b58_basis=None, unroll=False):
-    if unroll:
-        return encode.base58check_symbols_words(
-            0, _h160_words_33(x, y), b58_basis
-        )
-    h160 = encode.hash160_33(compressed_pubkey_bytes(x, y), unroll=unroll)
-    return encode.base58check_symbols(
-        _base58_payload(0, h160), b58_basis, unroll=unroll
-    )
+def symbols_p2pkh_uncompressed(x, y, b58_basis=None):
+    h160 = encode.hash160_65(uncompressed_pubkey_bytes(x, y))
+    return encode.base58check_symbols(_base58_payload(0, h160), b58_basis)
 
 
-def symbols_p2pkh_uncompressed(x, y, b58_basis=None, unroll=False):
-    if unroll:
-        return encode.base58check_symbols_words(
-            0, encode.hash160_65_words_from_xy(x, y), b58_basis
-        )
-    h160 = encode.hash160_65(uncompressed_pubkey_bytes(x, y), unroll=unroll)
-    return encode.base58check_symbols(
-        _base58_payload(0, h160), b58_basis, unroll=unroll
-    )
-
-
-def symbols_p2wpkh(x, y, b58_basis=None, unroll=False):
-    if unroll:
-        h160 = encode.words_to_bytes_be(_h160_words_33(x, y))
-    else:
-        h160 = encode.hash160_33(compressed_pubkey_bytes(x, y), unroll=unroll)
+def symbols_p2wpkh(x, y, b58_basis=None):
+    h160 = encode.hash160_33(compressed_pubkey_bytes(x, y))
     return encode.segwit_symbols(h160, 0)
 
 
-def symbols_p2sh_p2wpkh(x, y, b58_basis=None, unroll=False):
-    if unroll:
-        return encode.base58check_symbols_words(
-            5, encode.script_hash_words(_h160_words_33(x, y)), b58_basis
-        )
-    h160 = encode.hash160_33(compressed_pubkey_bytes(x, y), unroll=unroll)
-    B = h160.shape[1:]
-    script = jnp.concatenate(
-        [
-            jnp.zeros((1,) + B, dtype=U32),
-            jnp.full((1,) + B, 0x14, dtype=U32),
-            h160,
-        ],
-        axis=0,
-    )
+def symbols_p2sh_p2wpkh(x, y, b58_basis=None):
+    h160 = encode.hash160_33(compressed_pubkey_bytes(x, y))
     return encode.base58check_symbols(
-        _base58_payload(5, encode.hash160_22(script, unroll=unroll)),
-        b58_basis, unroll=unroll,
+        _base58_payload(5, script_hash(h160)), b58_basis
     )
 
 
-def symbols_ethereum(x, y, unroll=False):
-    if unroll:
-        acct = encode.words_to_bytes_be(
-            keccak.eth_account_words_from_xy(x, y, unroll=True)
-        )
-        return encode.eth_symbols(acct, unroll=True)
-    pub64 = jnp.concatenate([u256.to_bytes_be(x), u256.to_bytes_be(y)], axis=0)
-    digest = keccak.keccak256_bytes(pub64, 64, unroll=unroll)
-    return encode.eth_symbols(digest[12:], unroll=unroll)
+def symbols_ethereum(x, y):
+    return encode.eth_symbols(eth_account(x, y))
 
+
+_SYMBOLS = {
+    AddressFormat.P2PKH: symbols_p2pkh,
+    AddressFormat.P2PKH_UNCOMPRESSED: symbols_p2pkh_uncompressed,
+    AddressFormat.P2WPKH: symbols_p2wpkh,
+    AddressFormat.P2SH_P2WPKH: symbols_p2sh_p2wpkh,
+    AddressFormat.ETHEREUM: symbols_ethereum,
+}
 
 _TAPTWEAK_MIDSTATE = sha256.tagged_midstate("TapTweak")
 
 
-def p2tr_output_key(x, y, window_table, unroll: bool = False):
+def p2tr_output_key(x, y, window_table):
     """Taproot output key: even-Y normalize, TapTweak on device, Q = P + t*G.
 
     The reference computes the tweak per candidate on the CPU
@@ -153,7 +119,7 @@ def p2tr_output_key(x, y, window_table, unroll: bool = False):
     B = x.shape[1:]
     y_even = u256.select(y[0] & jnp.uint32(1) == 0, y, field.neg(y))
     xb = u256.to_bytes_be(x)
-    t_bytes = sha256.tagged_hash_32(_TAPTWEAK_MIDSTATE, xb, unroll=unroll)
+    t_bytes = sha256.tagged_hash_32(_TAPTWEAK_MIDSTATE, xb)
     t_limbs = u256.from_bytes_be(t_bytes)
     # BIP341: t must be < n (negligible failure probability, still masked)
     n_limbs = u256.constant(field.N_INT, B)
@@ -164,9 +130,9 @@ def p2tr_output_key(x, y, window_table, unroll: bool = False):
     return qx, t_ok & q_ok
 
 
-def symbols_p2tr(x, y, window_table, valid, unroll: bool = False):
+def symbols_p2tr(x, y, window_table, valid):
     """P2TR bech32m symbols.  Returns (syms, length, valid&tweak_valid)."""
-    qx, ok = p2tr_output_key(x, y, window_table, unroll=unroll)
+    qx, ok = p2tr_output_key(x, y, window_table)
     syms, length = encode.segwit_symbols(u256.to_bytes_be(qx), 1)
     return syms, length, valid & ok
 
@@ -203,18 +169,6 @@ def pad_device_dfa(dev, bucket_min: int = 32):
     accept = np.zeros((S2,), dtype=np.int32)
     accept[:S] = dev.accept.astype(np.int32)
     return table.reshape(-1), accept
-
-
-@functools.lru_cache(maxsize=8)
-def jitted_points_step(chain_len: int = 256):
-    """Shared EC stage: (bx, by, tx, ty) -> (x3, y3, valid).
-
-    Compiled once per (batch, chain) for ALL formats and patterns."""
-    return jax.jit(
-        lambda bx, by, tx, ty: curve.batch_affine_add(
-            bx, by, tx, ty, chain_len=chain_len
-        )
-    )
 
 
 def _compressed_bytes(xv, pi):
@@ -259,8 +213,7 @@ def variant_bits(m):
     return jnp.sum(m << shifts, axis=0)
 
 
-def glv_variant_symbols(fmt: AddressFormat, xv, yv, pi,
-                        b58_basis=None, unroll: bool = False):
+def glv_variant_symbols(fmt: AddressFormat, xv, yv, pi, b58_basis=None):
     """Address symbols for one GLV variant point: x-coordinate xv with
     compressed-pubkey parity index pi (prefix byte 2+pi); yv is the ±y
     coordinate (consulted by Ethereum only, which hashes full coords).
@@ -274,36 +227,11 @@ def glv_variant_symbols(fmt: AddressFormat, xv, yv, pi,
 
     pi: int, or a traced row of parity indices (glv_variants)."""
     if fmt == AddressFormat.ETHEREUM:
-        if unroll:
-            acct = encode.words_to_bytes_be(
-                keccak.eth_account_words_from_xy(xv, yv, unroll=True)
-            )
-            return encode.eth_symbols(acct, unroll=True)
-        pub64 = jnp.concatenate(
-            [u256.to_bytes_be(xv), u256.to_bytes_be(yv)], axis=0
-        )
-        digest = keccak.keccak256_bytes(pub64, 64)
-        return encode.eth_symbols(digest[12:])
+        return symbols_ethereum(xv, yv)
     if fmt == AddressFormat.P2PKH_UNCOMPRESSED:
         # full-coordinate hash: yv is the exact ±y (GLV_EXACT_Y), pi only
         # selects which sign the caller passed
-        if unroll:
-            return encode.base58check_symbols_words(
-                0, encode.hash160_65_words_from_xy(xv, yv), b58_basis
-            )
-        h160 = encode.hash160_65(uncompressed_pubkey_bytes(xv, yv))
-        return encode.base58check_symbols(_base58_payload(0, h160), b58_basis)
-    if unroll:
-        h160w = encode.hash160_33_words_from_x(xv, 2 + pi)
-        if fmt == AddressFormat.P2PKH:
-            return encode.base58check_symbols_words(0, h160w, b58_basis)
-        if fmt == AddressFormat.P2WPKH:
-            return encode.segwit_symbols(encode.words_to_bytes_be(h160w), 0)
-        if fmt == AddressFormat.P2SH_P2WPKH:
-            return encode.base58check_symbols_words(
-                5, encode.script_hash_words(h160w), b58_basis
-            )
-        raise ValueError(fmt)
+        return symbols_p2pkh_uncompressed(xv, yv, b58_basis)
     h160 = encode.hash160_33(_compressed_bytes(xv, pi))
     if fmt == AddressFormat.P2PKH:
         return encode.base58check_symbols(_base58_payload(0, h160), b58_basis)
@@ -316,8 +244,7 @@ def glv_variant_symbols(fmt: AddressFormat, xv, yv, pi,
     raise ValueError(fmt)
 
 
-def make_format_mask(fmt: AddressFormat, unroll: bool = False,
-                     glv: bool = False):
+def make_format_mask(fmt: AddressFormat, glv: bool = False):
     """Hash+encode+match mask stage: (x3, y3, valid, dfa_flat, dfa_accept,
     start, remaining, *extras) -> (matchbits (B,) int32, valid (B,) bool).
 
@@ -335,29 +262,16 @@ def make_format_mask(fmt: AddressFormat, unroll: bool = False,
         if glv:
             assert fmt in GLV_FORMATS, fmt
             X, Y, PI = glv_variants(fmt, x3, y3)
-            syms, length = glv_variant_symbols(fmt, X, Y, PI, unroll=unroll)
+            syms, length = glv_variant_symbols(fmt, X, Y, PI)
             m = match_symbols(dfa_flat, dfa_accept, start, width, syms,
                               length)
             return jnp.where(valid, variant_bits(m), 0), valid
 
         if fmt == AddressFormat.P2TR:
-            syms, length, mvalid = symbols_p2tr(x3, y3, extras[0], valid,
-                                                unroll=unroll)
+            syms, length, mvalid = symbols_p2tr(x3, y3, extras[0], valid)
         else:
             mvalid = valid
-            if fmt == AddressFormat.P2PKH:
-                syms, length = symbols_p2pkh(x3, y3, unroll=unroll)
-            elif fmt == AddressFormat.P2PKH_UNCOMPRESSED:
-                syms, length = symbols_p2pkh_uncompressed(x3, y3,
-                                                          unroll=unroll)
-            elif fmt == AddressFormat.P2WPKH:
-                syms, length = symbols_p2wpkh(x3, y3, unroll=unroll)
-            elif fmt == AddressFormat.P2SH_P2WPKH:
-                syms, length = symbols_p2sh_p2wpkh(x3, y3, unroll=unroll)
-            elif fmt == AddressFormat.ETHEREUM:
-                syms, length = symbols_ethereum(x3, y3, unroll=unroll)
-            else:  # pragma: no cover
-                raise AssertionError(fmt)
+            syms, length = _SYMBOLS[fmt](x3, y3)
 
         matched = match_symbols(dfa_flat, dfa_accept, start, width, syms,
                                 length)
@@ -414,60 +328,8 @@ def mask_to_result(matchbits, valid, ops_mult: int = 1) -> "StepResult":
     return StepResult(count=count, indices=top, ops=ops, vbits=vbits)
 
 
-def make_format_tail(fmt: AddressFormat, unroll: bool = False,
-                     glv: bool = False):
-    """Hash+encode+match stage: (x3, y3, valid, dfa_flat, dfa_accept, start,
-    remaining, *extras) -> StepResult.  start/remaining are traced scalars.
-
-    glv=True: DFA-matches all 6 GLV endomorphism variants {±k, ±λk, ±λ²k}
-    of each window key (6 keys per EC add -- the same amortization the
-    interval path uses, extended to arbitrary regex patterns)."""
-    mask = make_format_mask(fmt, unroll, glv)
-
-    def tail(x3, y3, valid, dfa_flat, dfa_accept, start, remaining, *extras):
-        matched, mvalid = mask(x3, y3, valid, dfa_flat, dfa_accept, start,
-                               remaining, *extras)
-        # GLV ops count uses the pre-refinement valid mask (6 keys per add);
-        # the non-GLV P2TR path reports post-tweak-validity ops
-        return mask_to_result(matched, mvalid, 6 if glv else 1)
-
-    return tail
-
-
-@functools.lru_cache(maxsize=16)
-def jitted_format_tail(fmt: AddressFormat, unroll: bool = False,
-                       glv: bool = False):
-    return jax.jit(make_format_tail(fmt, unroll, glv))
-
-
-def run_scan_step(fmt, bx, by, tx, ty, dfa_flat, dfa_accept, start, remaining,
-                  extras=(), chain_len: int = 256, glv: bool = False,
-                  unroll: bool = False):
-    """Convenience wrapper: shared points stage + per-format tail."""
-    x3, y3, valid = jitted_points_step(chain_len)(bx, by, tx, ty)
-    return jitted_format_tail(fmt, unroll, glv)(
-        x3, y3, valid, dfa_flat, dfa_accept, jnp.int32(start),
-        jnp.int32(remaining), *extras
-    )
-
-
 # packed per-window result row: [count, ops, idx0..15, vbits0..15]
 PACKED_WIDTH = 2 + 2 * TOP_K
-
-
-@functools.lru_cache(maxsize=4)
-def _jitted_pack():
-    return jax.jit(
-        lambda count, ops, idx, vbits: jnp.concatenate(
-            [count[None], ops[None], idx, vbits]
-        )
-    )
-
-
-def pack_result(res: StepResult):
-    """[count, ops, idx0..15, vbits0..15] as one device array (single host
-    transfer)."""
-    return _jitted_pack()(res.count, res.ops, res.indices, res.vbits)
 
 
 # ---------------------------------------------------------------------------
@@ -536,7 +398,7 @@ def bytes_be_words(h):
     ]
 
 
-def script_hash(h160, unroll: bool = False):
+def script_hash(h160):
     """hash160(OP_0 OP_PUSH20 <h160>) -- the P2SH-P2WPKH redeem script."""
     B = h160.shape[1:]
     script = jnp.concatenate(
@@ -547,50 +409,31 @@ def script_hash(h160, unroll: bool = False):
         ],
         axis=0,
     )
-    return encode.hash160_22(script, unroll=unroll)
+    return encode.hash160_22(script)
 
 
-def eth_account(x3, y3, unroll: bool = False):
-    """(20, T) Ethereum account bytes = keccak256(x||y)[12:].
-
-    unroll=True statically unrolls the keccak rounds (see
-    ops/keccak.keccak_f1600)."""
+def eth_account(x3, y3):
+    """(20, T) Ethereum account bytes = keccak256(x||y)[12:]."""
     pub64 = jnp.concatenate(
         [u256.to_bytes_be(x3), u256.to_bytes_be(y3)], axis=0
     )
-    return keccak.keccak256_bytes(pub64, 64, unroll=unroll)[12:32]
+    return keccak.keccak256_bytes(pub64, 64)[12:32]
 
 
-def interval_value_words(fmt: AddressFormat, x3, y3, *extras,
-                         unroll: bool = False):
+def interval_value_words(fmt: AddressFormat, x3, y3, *extras):
     """Format's device-checked value as big-endian u32 word rows (+ok mask
     refinement for P2TR)."""
     ok = None
     if fmt in (AddressFormat.P2PKH, AddressFormat.P2WPKH):
-        if unroll:
-            parity = 2 + (y3[0] & jnp.uint32(1))
-            return encode.hash160_33_words_from_x(x3, parity), None
-        h = encode.hash160_33(compressed_pubkey_bytes(x3, y3), unroll=unroll)
+        h = encode.hash160_33(compressed_pubkey_bytes(x3, y3))
     elif fmt == AddressFormat.P2PKH_UNCOMPRESSED:
-        if unroll:
-            return encode.hash160_65_words_from_xy(x3, y3), None
-        h = encode.hash160_65(uncompressed_pubkey_bytes(x3, y3), unroll=unroll)
+        h = encode.hash160_65(uncompressed_pubkey_bytes(x3, y3))
     elif fmt == AddressFormat.P2SH_P2WPKH:
-        if unroll:
-            parity = 2 + (y3[0] & jnp.uint32(1))
-            return encode.script_hash_words(
-                encode.hash160_33_words_from_x(x3, parity)
-            ), None
-        h = script_hash(
-            encode.hash160_33(compressed_pubkey_bytes(x3, y3), unroll=unroll),
-            unroll=unroll,
-        )
+        h = script_hash(encode.hash160_33(compressed_pubkey_bytes(x3, y3)))
     elif fmt == AddressFormat.ETHEREUM:
-        if unroll:
-            return keccak.eth_account_words_from_xy(x3, y3, unroll=True), None
-        h = eth_account(x3, y3, unroll=unroll)
+        h = eth_account(x3, y3)
     elif fmt == AddressFormat.P2TR:
-        qx, ok = p2tr_output_key(x3, y3, extras[0], unroll=unroll)
+        qx, ok = p2tr_output_key(x3, y3, extras[0])
         h = u256.to_bytes_be(qx)
     else:  # pragma: no cover
         raise ValueError(f"interval path does not support {fmt}")
@@ -624,8 +467,7 @@ def in_intervals(words, lo, hi):
     return matched
 
 
-def glv_interval_mask(fmt: AddressFormat, x3, y3, lo, hi,
-                      unroll: bool = False):
+def glv_interval_mask(fmt: AddressFormat, x3, y3, lo, hi):
     """6-bit GLV variant mask per key: bit 2v+s set iff variant s*λ^v
     (s: 0=+, 1=-) of the key's point matches the intervals.
 
@@ -635,27 +477,18 @@ def glv_interval_mask(fmt: AddressFormat, x3, y3, lo, hi,
     p2pkh) hash full coordinates so y3 is required."""
     X, Y, PI = glv_variants(fmt, x3, y3)
     if fmt == AddressFormat.ETHEREUM:
-        words = (keccak.eth_account_words_from_xy(X, Y, unroll=True)
-                 if unroll else bytes_be_words(eth_account(X, Y)))
+        h = eth_account(X, Y)
     elif fmt == AddressFormat.P2PKH_UNCOMPRESSED:
-        words = (encode.hash160_65_words_from_xy(X, Y) if unroll
-                 else bytes_be_words(encode.hash160_65(
-                     uncompressed_pubkey_bytes(X, Y))))
-    elif unroll:
-        # word path: the parity row folds into the schedule
-        words = encode.hash160_33_words_from_x(X, 2 + PI)
-        if fmt == AddressFormat.P2SH_P2WPKH:
-            words = encode.script_hash_words(words)
+        h = encode.hash160_65(uncompressed_pubkey_bytes(X, Y))
     else:
         h = encode.hash160_33(_compressed_bytes(X, PI))
         if fmt == AddressFormat.P2SH_P2WPKH:
             h = script_hash(h)
-        words = bytes_be_words(h)
+    words = bytes_be_words(h)
     return variant_bits(in_intervals(words, lo, hi))
 
 
-def make_range_mask(fmt: AddressFormat, glv: bool = False,
-                    unroll: bool = False):
+def make_range_mask(fmt: AddressFormat, glv: bool = False):
     """Interval-matching mask stage: (x3, y3, valid, lo, hi, remaining,
     *extras) -> (matchbits (B,) int32, valid (B,) bool).  matchbits: 0 =
     miss; the 6-bit GLV variant mask on GLV paths, 1 otherwise."""
@@ -666,9 +499,9 @@ def make_range_mask(fmt: AddressFormat, glv: bool = False,
         valid = valid & (idx < remaining)
         if glv:
             assert fmt in GLV_FORMATS, fmt
-            vmask = glv_interval_mask(fmt, x3, y3, lo, hi, unroll=unroll)
+            vmask = glv_interval_mask(fmt, x3, y3, lo, hi)
             return jnp.where(valid, vmask, 0), valid
-        words, ok = interval_value_words(fmt, x3, y3, *extras, unroll=unroll)
+        words, ok = interval_value_words(fmt, x3, y3, *extras)
         if ok is not None:
             valid = valid & ok
         matched = in_intervals(words, lo, hi) & valid
@@ -677,38 +510,22 @@ def make_range_mask(fmt: AddressFormat, glv: bool = False,
     return mask
 
 
-def make_range_tail(fmt: AddressFormat, glv: bool = False,
-                    unroll: bool = False):
-    """Interval-matching tail: (x3, y3, valid, lo, hi, remaining, *extras)
-    -> StepResult.  unroll=True selects the word-path hashes."""
-    mask = make_range_mask(fmt, glv, unroll)
-
-    def tail(x3, y3, valid, lo, hi, remaining, *extras):
-        matched, mvalid = mask(x3, y3, valid, lo, hi, remaining, *extras)
-        return mask_to_result(matched, mvalid, 6 if glv else 1)
-
-    return tail
-
-
-@functools.lru_cache(maxsize=16)
-def jitted_range_tail(fmt: AddressFormat, glv: bool = False,
-                      unroll: bool = False):
-    return jax.jit(make_range_tail(fmt, glv, unroll))
-
-
-def run_range_scan_step(fmt, bx, by, tx, ty, lo, hi, remaining,
-                        extras=(), chain_len: int = 256, glv: bool = False,
-                        unroll: bool = False):
-    """Convenience wrapper: shared points stage + interval tail."""
-    x3, y3, valid = jitted_points_step(chain_len)(bx, by, tx, ty)
-    return jitted_range_tail(fmt, glv, unroll)(
-        x3, y3, valid, jnp.asarray(lo), jnp.asarray(hi),
-        jnp.int32(remaining), *extras
-    )
+def matcher_args(pattern, fmt: AddressFormat, ivs):
+    """Host: the step's matcher arguments for a pattern -- (lo, hi) word
+    bounds of the planned intervals, or (dfa_flat, dfa_accept, start) of
+    the padded device DFA when ivs is None (see scan.route)."""
+    if ivs is not None:
+        lo, hi = intervals_to_words(
+            ivs, INTERVAL_WORDS[fmt], n_slots=interval_slot_count(len(ivs))
+        )
+        return jnp.asarray(lo), jnp.asarray(hi)
+    dev_dfa = pattern.device_dfa(fmt)
+    flat, accept = pad_device_dfa(dev_dfa)
+    return jnp.asarray(flat), jnp.asarray(accept), jnp.int32(dev_dfa.start)
 
 
 def packed_scan_fn(fmt: AddressFormat, kind: str, glv: bool, chain_len: int,
-                   k_sub: int, unroll: bool, with_masks: bool = False):
+                   k_sub: int, with_masks: bool = False):
     """k_sub-window packed scan step (un-jitted, so the mesh can shard_map
     it): scans k_sub consecutive key windows per dispatch and returns one
     packed (k_sub, PACKED_WIDTH) result, amortizing the host<->device
@@ -727,8 +544,8 @@ def packed_scan_fn(fmt: AddressFormat, kind: str, glv: bool, chain_len: int,
     remaining (K,), *margs, *extras) -> (K, PACKED_WIDTH) int32
     [, (K, B) int32]."""
     mask = (
-        make_range_mask(fmt, glv, unroll) if kind == "range"
-        else make_format_mask(fmt, unroll, glv)
+        make_range_mask(fmt, glv) if kind == "range"
+        else make_format_mask(fmt, glv)
     )
     n_margs = 2 if kind == "range" else 3
     ops_mult = 6 if glv else 1
@@ -759,58 +576,28 @@ def packed_scan_fn(fmt: AddressFormat, kind: str, glv: bool, chain_len: int,
 
 @functools.lru_cache(maxsize=16)
 def packed_xla_scan_step(fmt: AddressFormat, kind: str, glv: bool,
-                         chain_len: int, k_sub: int, unroll: bool):
-    """Jitted packed_scan_fn with masks: the single-device gpu scan step,
+                         chain_len: int, k_sub: int):
+    """Jitted packed_scan_fn with masks: the single-device scan step,
     -> ((K, PACKED_WIDTH) packed results, (K, B) match masks)."""
-    return jax.jit(packed_scan_fn(fmt, kind, glv, chain_len, k_sub, unroll,
+    return jax.jit(packed_scan_fn(fmt, kind, glv, chain_len, k_sub,
                                   with_masks=True))
 
 
-# ---------------------------------------------------------------------------
-# Full-mask recovery: when a window matches more than TOP_K keys, the packed
-# result's index slots truncate (the count does not).  The scanners re-run
-# the window through these mask steps and pull the complete (B,) match
-# vector to the host -- a rare extra dispatch + ~2 MB transfer instead of
-# silently dropping matches (the reference reports every match per batch,
-# gpu.rs:1030-1093).
-# ---------------------------------------------------------------------------
+def run_window(fmt: AddressFormat, kind: str, bx, by, tx, ty, remaining,
+               margs, extras=(), chain_len: int = 256, glv: bool = False):
+    """One key window (bx, by: (16,) base point limbs) through the packed
+    step at k_sub=1 -> (StepResult of host values, (B,) int32 device mask).
 
-
-@functools.lru_cache(maxsize=16)
-def _jitted_format_mask(fmt: AddressFormat, unroll: bool = False,
-                        glv: bool = False):
-    mask = make_format_mask(fmt, unroll, glv)
-    return jax.jit(
-        lambda *a: mask(*a)[0].astype(jnp.int32)
+    The mesh's overflow recovery: when a window matches more than TOP_K
+    keys, the packed result's index slots truncate (the count does not),
+    and the full match vector is fetched from this re-run -- a rare extra
+    dispatch instead of silently dropping matches (the reference reports
+    every match per batch, gpu.rs:1030-1093)."""
+    step = packed_xla_scan_step(fmt, kind, glv, chain_len, 1)
+    packed, masks = step(
+        jnp.asarray(bx)[None], jnp.asarray(by)[None], tx, ty,
+        jnp.full((1,), remaining, dtype=jnp.int32), *margs, *extras,
     )
-
-
-@functools.lru_cache(maxsize=16)
-def _jitted_range_mask(fmt: AddressFormat, glv: bool = False,
-                       unroll: bool = False):
-    mask = make_range_mask(fmt, glv, unroll)
-    return jax.jit(
-        lambda *a: mask(*a)[0].astype(jnp.int32)
-    )
-
-
-def run_scan_mask(fmt, bx, by, tx, ty, dfa_flat, dfa_accept, start,
-                  remaining, extras=(), chain_len: int = 256,
-                  glv: bool = False, unroll: bool = False):
-    """Full (B,) int32 match mask for one window (DFA path)."""
-    x3, y3, valid = jitted_points_step(chain_len)(bx, by, tx, ty)
-    return _jitted_format_mask(fmt, unroll, glv)(
-        x3, y3, valid, dfa_flat, dfa_accept, jnp.int32(start),
-        jnp.int32(remaining), *extras
-    )
-
-
-def run_range_scan_mask(fmt, bx, by, tx, ty, lo, hi, remaining,
-                        extras=(), chain_len: int = 256, glv: bool = False,
-                        unroll: bool = False):
-    """Full (B,) int32 match mask for one window (interval path)."""
-    x3, y3, valid = jitted_points_step(chain_len)(bx, by, tx, ty)
-    return _jitted_range_mask(fmt, glv, unroll)(
-        x3, y3, valid, jnp.asarray(lo), jnp.asarray(hi),
-        jnp.int32(remaining), *extras
-    )
+    row = np.asarray(packed)[0]
+    return StepResult(count=int(row[0]), indices=row[2:2 + TOP_K],
+                      ops=int(row[1]), vbits=row[2 + TOP_K:]), masks[0]

@@ -83,83 +83,6 @@ def _f(j: int, x, y, z):
     return x ^ (y | ~z)
 
 
-def _f_pe(j: int, x, y, z):
-    """Round functions via bitops partial evaluation, re-associated to 2-3
-    ops (vs the textbook 3-5 the reference runs, ripemd160.wgsl:22-38):
-    f1 = z ^ (x & (y^z)); f3 = y ^ (z & (x^y))."""
-    from vgen_tpu.ops import bitops as bo
-
-    if j == 0:
-        return bo.xor2(bo.xor2(x, y), z)
-    if j == 1:
-        return bo.xor2(z, bo.and2(x, bo.xor2(y, z)))
-    if j == 2:
-        return bo.xor2(bo.or2(x, bo.not1(y)), z)
-    if j == 3:
-        return bo.xor2(y, bo.and2(z, bo.xor2(x, y)))
-    return bo.xor2(x, bo.or2(y, bo.not1(z)))
-
-
-def _rounds_pe(x):
-    """Core 160-step dual-line RIPEMD-160 over 16 message words (traced rows
-    or int constants); returns the 5 chaining words h'0..h'4 (traced)."""
-    from vgen_tpu.ops import bitops as bo
-
-    h = [int(v) for v in _IV]
-    al, bl, cl, dl, el = h
-    ar, br, cr, dr, er = h
-    for rnd in range(5):
-        kl = int(_K_L[rnd])
-        kr = int(_K_R[rnd])
-        for i in range(16):
-            xl = x[int(_PERM_L[rnd][i])]
-            xr = x[int(_PERM_R[rnd][i])]
-            tl = bo.addn(
-                bo.rotl(
-                    bo.addn(al, _f_pe(rnd, bl, cl, dl), xl, kl),
-                    int(_SHIFT_L[rnd][i]),
-                ),
-                el,
-            )
-            tr = bo.addn(
-                bo.rotl(
-                    bo.addn(ar, _f_pe(4 - rnd, br, cr, dr), xr, kr),
-                    int(_SHIFT_R[rnd][i]),
-                ),
-                er,
-            )
-            al, bl, cl, dl, el = el, tl, bl, bo.rotl(cl, 10), dl
-            ar, br, cr, dr, er = er, tr, br, bo.rotl(cr, 10), dr
-    return [
-        bo.addn(h[1], cl, dr),
-        bo.addn(h[2], dl, er),
-        bo.addn(h[3], el, ar),
-        bo.addn(h[4], al, br),
-        bo.addn(h[0], bl, cr),
-    ]
-
-
-def _bswap(v):
-    """Byte-swap a u32 row (or int) via bitops."""
-    from vgen_tpu.ops import bitops as bo
-
-    return bo.bswap32(v)
-
-
-def ripemd160_sha_state_words(state):
-    """RIPEMD-160 of a 32-byte SHA-256 digest given as (8, *B) big-endian
-    state words; returns 5 BIG-endian u32 word rows of the 20-byte digest
-    (the layout interval matching compares against).
-
-    Skips every byte materialization of the classic path: message words are
-    byte-swapped state words, padding words are int constants folded into
-    the round adds, and the BE output words are byte-swapped chain words."""
-    x = [_bswap(state[i]) for i in range(8)]
-    x += [0x80, 0, 0, 0, 0, 0, 256, 0]
-    out = _rounds_pe(x)
-    return [_bswap(w) for w in out]
-
-
 def ripemd160_digest32(digest):
     """RIPEMD-160 of 32-byte messages: (32, *B) bytes -> (20, *B) bytes.
 

@@ -6,9 +6,8 @@ defined but never ran on-device (sha256.wgsl:177-249).  Message schedules for
 our fixed-size inputs (33-byte pubkey, 25-byte address payload, 32-byte
 digests) are built with constant padding baked in.
 
-Structure: one round per fori_loop iteration under jit (rotating schedule
-buffer, dynamic K lookup), or fully unrolled with scalar constants
-(unroll=True, scan.route's word path).
+Structure: rounds 0-15 traced statically, then a fori_loop over three
+16-round blocks (see compress).
 """
 
 from __future__ import annotations
@@ -49,29 +48,26 @@ def _rotr(x, n: int):
     return (x >> n) | (x << (32 - n))
 
 
-def compress(state, w, unroll: bool = False):
-    """One SHA-256 compression: state (8,*B) or list, w list of 16 (*B,) words.
+def compress(state, w):
+    """One SHA-256 compression: state (8,*B) or list, w list of 16 (*B,)
+    word rows or Python-int constant words.
 
-    unroll=True: 64 static rounds with scalar K constants -- no captured
-    arrays and no dynamic indexing.
-    unroll=False (jit/XLA, the default): rounds 0-15 traced statically,
-    then a fori_loop over three 16-round blocks, each first advancing the
-    16-word schedule in place.  Sixteen rounds per iteration bring every
-    state and schedule word back to its own slot, so the loop carry is
-    recomputed whole and never shuffled (a one-round body rotates the
-    carry, and on the gpu those copies were most of the step).  The
-    unrolled form's 64-round reconvergent DAG makes some XLA:CPU builds
-    evaluate it as an expression TREE (minutes per batch); a 16-round body
-    stays under that cliff.
+    Rounds 0-15 are traced statically, then a fori_loop runs three 16-round
+    blocks, each first advancing the 16-word schedule in place.  Sixteen
+    rounds per iteration bring every state and schedule word back to its
+    own slot, so the loop carry is recomputed whole and never shuffled (a
+    one-round body rotates the carry, and on the gpu those copies were most
+    of the step).  A fully unrolled 64-round reconvergent DAG makes some
+    XLA:CPU builds evaluate it as an expression TREE (minutes per batch); a
+    16-round body stays under that cliff.
     Returns the new (8, *B) state (IV-added)."""
-    if unroll:
-        return jnp.stack(compress_pe([state[i] for i in range(8)], w))
-
     kvec = jnp.asarray(_K.reshape(-1))
     st0 = jnp.stack([state[i] for i in range(8)])
-    from vgen_tpu.ops import bitops as bo
-
-    w = tuple(bo.materialize(w[i], st0.shape[1:], jnp) for i in range(16))
+    w = tuple(
+        jnp.full(st0.shape[1:], w[i], dtype=U32) if isinstance(w[i], int)
+        else w[i]
+        for i in range(16)
+    )
 
     def rounds16(st, ws, ks):
         a, b, c, d, e, f, g, h = st
@@ -107,139 +103,30 @@ def compress(state, w, unroll: bool = False):
     return jnp.stack(st) + st0
 
 
-IV_INTS = [int(v) for v in IV]
-_K_INTS = [int(v) for v in _K.reshape(-1)]
-
-
-def compress_pe(state, w):
-    """Partial-evaluating unrolled SHA-256 compression.
-
-    state: list of 8 entries, w: list of 16 entries -- each a traced uint32
-    row OR a Python int constant (bitops partial evaluation).  Constant
-    schedule words (padding/length), a constant IV, and K[t]+w[t] combining
-    then cost nothing at run time, and ch/maj use the re-associated forms
-    with their shared-subexpression carried across rounds:
-
-      ch  = g ^ (e & (f^g)),   f^g this round == e^f last round
-      maj = b ^ ((a^b) & (b^c)), b^c this round == a^b last round
-
-    ~3 ops/round cheaper than the textbook forms the reference executes
-    (shaders/sha256.wgsl:131-158).  Returns the 8 state entries as a list
-    (traced rows where data-dependent).
-    """
-    from vgen_tpu.ops import bitops as bo
-
-    st0 = list(state)
-    a, b, c, d, e, f, g, h = st0
-    w = list(w[:16])
-    fg = bo.xor2(f, g)  # f^g for round 0
-    bc = bo.xor2(b, c)  # b^c for round 0
-    for t in range(64):
-        if t >= 16:
-            w15 = w[(t - 15) % 16]
-            w2 = w[(t - 2) % 16]
-            s0 = bo.xor2(
-                bo.xor2(bo.rotr(w15, 7), bo.rotr(w15, 18)), bo.shr(w15, 3)
-            )
-            s1 = bo.xor2(
-                bo.xor2(bo.rotr(w2, 17), bo.rotr(w2, 19)), bo.shr(w2, 10)
-            )
-            w[t % 16] = bo.addn(w[t % 16], s0, w[(t - 7) % 16], s1)
-        s1 = bo.xor2(bo.xor2(bo.rotr(e, 6), bo.rotr(e, 11)), bo.rotr(e, 25))
-        ch = bo.xor2(g, bo.and2(e, fg))
-        t1 = bo.addn(h, s1, ch, _K_INTS[t], w[t % 16])
-        s0 = bo.xor2(bo.xor2(bo.rotr(a, 2), bo.rotr(a, 13)), bo.rotr(a, 22))
-        ab = bo.xor2(a, b)
-        maj = bo.xor2(b, bo.and2(ab, bc))
-        ef = bo.xor2(e, f)
-        h, g, f, e, d, c, b, a = (
-            g, f, e, bo.addn(d, t1), c, b, a, bo.addn(t1, s0, maj)
-        )
-        fg, bc = ef, ab
-    out = [bo.addn(v, st0[i]) for i, v in enumerate([a, b, c, d, e, f, g, h])]
-    shp = None
-    for v in out:
-        if not bo.is_const(v):
-            shp = v.shape
-            break
-    return [bo.materialize(v, shp, jnp) for v in out]
-
-
-def x33_schedule_words(x_limbs, parity):
-    """Schedule words for SHA-256(parity_byte || x_be_32bytes) built straight
-    from 16-bit limbs -- no per-byte materialization (saves ~80 VPU ops per
-    hash vs to_bytes_be + words_from_bytes).
-
-    x_limbs: (16, *B) uint32 little-endian 16-bit limbs; parity: Python int
-    (2/3) or traced uint32 row of {2,3}.  Returns the 16-entry word list for
-    compress_pe (words 9..15 are int constants)."""
-    from vgen_tpu.ops import bitops as bo
-
-    l = x_limbs
-    w = [
-        bo.or2(bo.shl(parity, 24), bo.or2(bo.shl(l[15], 8), bo.shr(l[14], 8)))
-    ]
-    for i in range(1, 8):
-        w.append(
-            bo.or2(
-                bo.shl(bo.and2(l[16 - 2 * i], 0xFF), 24),
-                bo.or2(bo.shl(l[15 - 2 * i], 8), bo.shr(l[14 - 2 * i], 8)),
-            )
-        )
-    w.append(bo.or2(bo.shl(bo.and2(l[0], 0xFF), 24), 0x00800000))
-    w += [0, 0, 0, 0, 0, 0, 264]
-    return w
-
-
-def sha256_x33_state(x_limbs, parity):
-    """SHA-256 state words (8, *B) of a compressed pubkey (parity||x) built
-    from limbs; feed to ripemd160.ripemd160_sha_state_words for hash160."""
-    return compress_pe(IV_INTS, x33_schedule_words(x_limbs, parity))
-
-
-def sha256_x65_state(x_limbs, y_limbs):
-    """SHA-256 state words of the 65-byte uncompressed pubkey 0x04||x||y
-    (two compress_pe blocks, schedule words straight from limbs)."""
-    from vgen_tpu.ops import bitops as bo
-
-    def span(l, j):
-        # message word covering value bytes 4j-1 .. 4j+2 of a BE 32-byte value
-        return bo.or2(
-            bo.shl(bo.and2(l[16 - 2 * j], 0xFF), 24),
-            bo.or2(bo.shl(l[15 - 2 * j], 8), bo.shr(l[14 - 2 * j], 8)),
-        )
-
-    xl, yl = x_limbs, y_limbs
-    w = [bo.or2(0x04 << 24, bo.or2(bo.shl(xl[15], 8), bo.shr(xl[14], 8)))]
-    for j in range(1, 8):
-        w.append(span(xl, j))
-    w.append(
-        bo.or2(
-            bo.shl(bo.and2(xl[0], 0xFF), 24),
-            bo.or2(bo.shl(yl[15], 8), bo.shr(yl[14], 8)),
-        )
-    )
-    for j in range(1, 8):
-        w.append(span(yl, j))
-    st = compress_pe(IV_INTS, w)
-    w2 = [bo.or2(bo.shl(bo.and2(yl[0], 0xFF), 24), 0x00800000)]
-    w2 += [0] * 14 + [520]
-    return compress_pe(st, w2)
-
-
 def initial_state(batch_shape):
     return jnp.stack(
         [jnp.full(tuple(batch_shape), int(v), dtype=U32) for v in IV]
     )
 
 
+def _push_byte(word, byte):
+    """(word << 8) | byte for u32 rows or Python-int constants; int operands
+    fold at trace time, so constant padding bytes cost nothing."""
+    word = ((word << 8) & 0xFFFFFFFF) if isinstance(word, int) else word << 8
+    if isinstance(word, int) and isinstance(byte, int):
+        return word | byte
+    if isinstance(word, int):
+        word, byte = byte, word
+    if isinstance(byte, int):
+        return word | np.uint32(byte) if byte else word
+    return word | byte
+
+
 def words_from_bytes(data, msg_len: int):
     """Build the 16-word single-block schedule for a message of msg_len bytes
-    (<= 55) given data as a (msg_len, *B) byte array.  Padding/length words
-    come out as Python-int constants, so compress_pe folds them for free
-    (compress materializes them for the fori_loop path)."""
-    from vgen_tpu.ops import bitops as bo
-
+    (<= 55) given data as a (msg_len, *B) byte array.  Words holding only
+    padding/length bytes come out as Python-int constants (compress
+    broadcasts them)."""
     assert msg_len <= 55
     w = []
     for wi in range(16):
@@ -254,20 +141,19 @@ def words_from_bytes(data, msg_len: int):
                 byte = ((msg_len * 8) >> (8 * (63 - idx))) & 0xFF
             else:
                 byte = 0
-            word = bo.or2(bo.shl(word, 8), byte)
+            word = _push_byte(word, byte)
         w.append(word)
     return w
 
 
-def sha256_bytes(data, msg_len: int, unroll: bool = False):
+def sha256_bytes(data, msg_len: int):
     """SHA-256 of fixed-length (<= 55 byte) messages: (L,*B) bytes -> (32,*B)."""
     B = data.shape[1:]
-    st = compress(initial_state(B), words_from_bytes(data, msg_len),
-                  unroll=unroll)
+    st = compress(initial_state(B), words_from_bytes(data, msg_len))
     return state_to_bytes(st)
 
 
-def sha256_bytes_2block(data, msg_len: int, unroll: bool = False):
+def sha256_bytes_2block(data, msg_len: int):
     """SHA-256 for 56 <= msg_len <= 119 byte messages (two blocks).
 
     Needed for the 65-byte uncompressed pubkey (P2PKH-uncompressed path,
@@ -286,7 +172,7 @@ def sha256_bytes_2block(data, msg_len: int, unroll: bool = False):
             )
             word = (word << 8) | byte
         w1.append(word)
-    st = compress(initial_state(B), w1, unroll=unroll)
+    st = compress(initial_state(B), w1)
     # block 2: remaining bytes + pad + length
     w2 = []
     bits = msg_len * 8
@@ -304,7 +190,7 @@ def sha256_bytes_2block(data, msg_len: int, unroll: bool = False):
                 byte = zero
             word = (word << 8) | byte
         w2.append(word)
-    return state_to_bytes(compress(st, w2, unroll=unroll))
+    return state_to_bytes(compress(st, w2))
 
 
 def state_to_bytes(state):
@@ -316,10 +202,9 @@ def state_to_bytes(state):
     return jnp.stack(out)
 
 
-def double_sha256_bytes(data, msg_len: int, unroll: bool = False):
+def double_sha256_bytes(data, msg_len: int):
     """SHA256(SHA256(msg)) for msg_len <= 55 (checksum path)."""
-    return sha256_bytes(sha256_bytes(data, msg_len, unroll=unroll), 32,
-                        unroll=unroll)
+    return sha256_bytes(sha256_bytes(data, msg_len), 32)
 
 
 def tagged_midstate(tag: str) -> np.ndarray:
@@ -365,7 +250,7 @@ def tagged_midstate(tag: str) -> np.ndarray:
     )
 
 
-def tagged_hash_32(midstate: np.ndarray, data32, unroll: bool = False):
+def tagged_hash_32(midstate: np.ndarray, data32):
     """SHA256 tagged hash of a 32-byte payload given the tag midstate.
 
     Message is tag32||tag32||data32 = 96 bytes; block 2 = data32 + padding."""
@@ -377,11 +262,6 @@ def tagged_hash_32(midstate: np.ndarray, data32, unroll: bool = False):
         for b in range(4):
             word = (word << 8) | data32[wi * 4 + b]
         w.append(word)
-    if unroll:
-        # PE path: int midstate + int padding words fold into the rounds
-        w += [0x80000000, 0, 0, 0, 0, 0, 0, 96 * 8]
-        st = compress_pe([int(v) for v in np.asarray(midstate)], w)
-        return state_to_bytes(jnp.stack(st))
     w.append(jnp.full(B, 0x80000000, dtype=U32))  # w[8]
     for _ in range(6):
         w.append(zero)
@@ -389,4 +269,4 @@ def tagged_hash_32(midstate: np.ndarray, data32, unroll: bool = False):
     st = jnp.stack(
         [jnp.full(tuple(B), int(v), dtype=U32) for v in np.asarray(midstate)]
     )
-    return state_to_bytes(compress(st, w, unroll=unroll))
+    return state_to_bytes(compress(st, w))

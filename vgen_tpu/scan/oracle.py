@@ -1,16 +1,17 @@
-"""The device's match mask for one key window vs the host's independent
-re-derivation.
+"""The device's match masks for one dispatch of key windows vs the host's
+independent re-derivation.
 
 The scan pipeline is integer throughout, so the comparison is exact: for
 every checked key the device's match bits (1, or the 6-bit GLV variant mask
 of ops/pipeline.glv_interval_mask) must equal what the host derives with the
 native C++ library (or the pure-Python oracle) and the pattern's regex.
-The checked keys are every index the device reported plus the first
-``n_check`` keys of the window.
+The checked keys are every index the device reported in every window of the
+dispatch, plus the first ``n_check`` keys of the first and the last window.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -122,6 +123,7 @@ class WindowCheck:
     pattern: str
     kind: str
     glv: bool
+    n_windows: int = 1
     first_call_s: float = 0.0
     step_ms: float = 0.0
     n_checked: int = 0
@@ -137,7 +139,8 @@ class WindowCheck:
         return (
             f"{self.fmt.value:>18} {self.kind:>5} glv={int(self.glv)} "
             f"{self.pattern!r:12} first call {self.first_call_s:7.2f}s "
-            f"step {self.step_ms:8.2f}ms  checked {self.n_checked} keys, "
+            f"step {self.step_ms:8.2f}ms  checked {self.n_checked} keys "
+            f"in {self.n_windows} windows, "
             f"device {self.n_device} / host {self.n_host} matches, "
             f"{len(self.mismatches)} mismatches"
         )
@@ -145,17 +148,20 @@ class WindowCheck:
 
 class WindowRunner:
     """Runs the scanner's own compiled step (pipeline.packed_xla_scan_step,
-    k_sub windows from a base) and returns the first window's match mask;
-    tables are built once."""
+    k_sub windows from a base) and returns every window's match mask;
+    tables are built once.  k_sub: windows per dispatch, by default the
+    route's for the device's platform."""
 
-    def __init__(self, batch: int, chain_len: int, device=None):
+    def __init__(self, batch: int, chain_len: int, device=None,
+                 k_sub: Optional[int] = None):
         import jax
 
-        from vgen_tpu.scan import tables
+        from vgen_tpu.scan import route, tables
 
         self.batch = batch
         self.chain_len = min(chain_len, batch)
         self.device = device or jax.devices()[0]
+        self.k_sub = k_sub or route.windows_per_dispatch(self.device.platform)
         self.tx, self.ty = tables.ig_table_arrays(batch, self.device)
         self._wt = None
 
@@ -184,23 +190,16 @@ class WindowRunner:
         from vgen_tpu.scan.tables import _ints_to_limbs
 
         ivs = route_mod.plan_intervals(pattern, fmt, self.batch, is_range)
-        route = route_mod.route(self.device.platform, fmt, ivs, is_range)
-        if route.kind == "range":
-            lo, hi = pipeline.intervals_to_words(
-                ivs, pipeline.INTERVAL_WORDS[fmt],
-                n_slots=pipeline.interval_slot_count(len(ivs)),
-            )
-            margs = (jnp.asarray(lo), jnp.asarray(hi))
-        else:
-            dfa = pattern.device_dfa(fmt)
-            flat, accept = pipeline.pad_device_dfa(dfa)
-            margs = (jnp.asarray(flat), jnp.asarray(accept),
-                     jnp.int32(dfa.start))
+        route = dataclasses.replace(
+            route_mod.route(self.device.platform, fmt, ivs, is_range),
+            k_sub=self.k_sub,
+        )
+        margs = pipeline.matcher_args(pattern, fmt, ivs)
         K = route.k_sub
         pts = [ec.scalar_mult_base_fast(base + k * self.batch)
                for k in range(K)]
         step = pipeline.packed_xla_scan_step(
-            fmt, route.kind, route.glv, self.chain_len, K, route.unroll
+            fmt, route.kind, route.glv, self.chain_len, K
         )
         args = (
             jnp.asarray(_ints_to_limbs([p[0] for p in pts])),
@@ -211,38 +210,44 @@ class WindowRunner:
         return route, step, args
 
     def mask(self, fmt: AddressFormat, pattern: Pattern, base: int):
-        """(route, (batch,) int32 mask) for keys base+1 .. base+batch of a
-        random scan."""
+        """(route, (K, batch) int32 masks) for the K windows of a random
+        scan from base: window k covers keys base + k*batch + 1 ..
+        base + (k+1)*batch."""
         route, step, args = self.prepare(fmt, pattern, base)
-        return route, step(*args)[1][0]
+        return route, step(*args)[1]
 
 
 def check_window(runner: WindowRunner, fmt: AddressFormat, pattern_str: str,
                  base: int, n_check: int) -> WindowCheck:
-    """Compare one window's device mask with the host re-derivation of the
-    first n_check keys and of every key the device reported."""
+    """Compare one dispatch's device masks with the host re-derivation of
+    every key the device reported in any window, and of the first n_check
+    keys of the first and the last window.  Mismatches are (flat index
+    k*batch + i, device bits, host bits)."""
     import numpy as np
 
     pattern = Pattern(pattern_str)
     t0 = time.perf_counter()
-    route, mask = runner.mask(fmt, pattern, base)
-    mask.block_until_ready()
+    route, masks = runner.mask(fmt, pattern, base)
+    masks.block_until_ready()
     first = time.perf_counter() - t0
     t0 = time.perf_counter()
     runner.mask(fmt, pattern, base)[1].block_until_ready()
     step = time.perf_counter() - t0
-    mask = np.asarray(mask)
-    reported = np.nonzero(mask)[0]
-    idxs = sorted(set(range(min(n_check, runner.batch)))
-                  | {int(i) for i in reported})
-    want = expected_bits(fmt, pattern, [base + 1 + i for i in idxs],
+    flat = np.asarray(masks).reshape(-1)
+    B = runner.batch
+    K = flat.shape[0] // B
+    reported = np.nonzero(flat)[0]
+    head = range(min(n_check, B))
+    idxs = sorted({int(i) for i in reported} | set(head)
+                  | {(K - 1) * B + i for i in head})
+    want = expected_bits(fmt, pattern, [base + 1 + j for j in idxs],
                          route.glv, HostAddresses(fmt))
-    res = WindowCheck(fmt, pattern_str, route.kind, route.glv, first,
+    res = WindowCheck(fmt, pattern_str, route.kind, route.glv, K, first,
                       step * 1e3, len(idxs), len(reported),
                       sum(1 for w in want if w))
-    for i, w in zip(idxs, want):
-        if int(mask[i]) != w:
-            res.mismatches.append((i, int(mask[i]), w))
+    for j, w in zip(idxs, want):
+        if int(flat[j]) != w:
+            res.mismatches.append((j, int(flat[j]), w))
     return res
 
 

@@ -6,9 +6,7 @@ instead of testing "not CPU" each on their own:
 
 * ``gpu``: the XLA pipeline of ops/pipeline.py, k_sub key windows per
   dispatch as one batch (``packed_xla_scan_step``).
-* ``cpu``: the same pipeline, one window per dispatch.
-
-Both use the loop-rolled hash forms (see _UNROLL).
+* ``cpu``: the same step, one window per dispatch.
 """
 
 from __future__ import annotations
@@ -20,11 +18,6 @@ from vgen_tpu.crypto.address import AddressFormat
 from vgen_tpu.ops import pipeline
 
 PLATFORMS = ("gpu", "cpu")
-
-# Word-path (statically unrolled) hash forms per platform.  Off on the gpu
-# too: with them the P2PKH interval+GLV step did not finish compiling in 8
-# minutes on the H100, against 5.5 minutes loop-rolled (PERF.md).
-_UNROLL = {"gpu": False, "cpu": False}
 
 # Key windows per dispatch on the gpu.
 GPU_K_SUB = 8
@@ -40,13 +33,11 @@ class Route:
     intervals (anchored prefixes, pattern/intervals.py); "dfa" encodes the
     address on the device and runs the pattern's DFA.  glv: check the 6 GLV
     endomorphism variants of every key (random scans only).  k_sub: key
-    windows per dispatch (1 = one unpacked window per step).  unroll:
-    word-path hash forms."""
+    windows per dispatch."""
 
     kind: str
     glv: bool
     k_sub: int
-    unroll: bool
 
 
 def check_platform(platform: str) -> str:
@@ -90,7 +81,6 @@ def route(platform: str, fmt: AddressFormat, ivs, is_range: bool,
         kind="range" if ivs is not None else "dfa",
         glv=glv_allowed(fmt, is_range),
         k_sub=windows_per_dispatch(platform, k_sub),
-        unroll=_UNROLL[platform],
     )
 
 
